@@ -1,0 +1,67 @@
+"""Attention-ASPP-UNet eval forward as an ``nn.Module`` (v1 gates, ASPP).
+
+Counterpart of ``att_aspp_unet_tpu/models/att_aspp_unet.py`` at inference,
+run as the BN-folded packed plan of ``att_aspp_unet_tpu/infer/fast_forward.py``:
+a 4-level encoder (base_c x {1, 2, 4, 8}) of fused CBR pairs, the ASPP
+bridge (base_c x 16), decoder stages u4..u1 with v1 gates on u4/u3/u2, and a
+1x1 output conv.  Weights come from the JAX package's variables through
+``utils.convert.jax_variables_to_torch``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..config import ModelConfig
+from ..nn.blocks import ASPP, FusedCBRPair, UpBlock
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class AttentionASPPUNet(nn.Module):
+    """Input (B, in_channels, S, S) with S a multiple of 16 -> logits
+    (B, num_classes, S, S) f32."""
+
+    def __init__(self, cfg: ModelConfig = ModelConfig(), device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = _DTYPES[cfg.compute_dtype]
+        kw = dict(device=device, dtype=self.dtype)
+        c = cfg.base_c
+        widths = {1: c, 2: 2 * c, 3: 4 * c, 4: 8 * c}
+        cin = cfg.in_channels
+        for lvl in (1, 2, 3, 4):
+            setattr(self, f"d{lvl}", FusedCBRPair(cin, widths[lvl],
+                                                  widths[lvl], **kw))
+            cin = widths[lvl]
+        self.bridge = ASPP(8 * c, 16 * c, cfg.aspp_rates, **kw)
+        g = 16 * c
+        for lvl in (4, 3, 2, 1):
+            setattr(self, f"u{lvl}", UpBlock(g, widths[lvl], gated=lvl >= 2,
+                                             **kw))
+            g = widths[lvl]
+        self.register_buffer("out_w", torch.zeros(c, cfg.num_classes, **kw))
+        self.register_buffer("out_b", torch.zeros(cfg.num_classes,
+                                                  dtype=torch.float32,
+                                                  device=device))
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        S1, S2 = x.shape[-2], x.shape[-1]
+        if S1 % 16 or S2 % 16:
+            raise ValueError(f"input {S1}x{S2}: both sides must be multiples "
+                             "of 16 (four 2x2 poolings)")
+        x = x.to(self.dtype)
+        x1 = self.d1(x)
+        x2 = self.d2(F.max_pool2d(x1, 2))
+        x3 = self.d3(F.max_pool2d(x2, 2))
+        x4 = self.d4(F.max_pool2d(x3, 2))
+        b = self.bridge(F.max_pool2d(x4, 2))
+        d = self.u4(b, x4)
+        d = self.u3(d, x3)
+        d = self.u2(d, x2)
+        d = self.u1(d, x1)
+        logits = torch.einsum("nchw,co->nohw", d.float(), self.out_w.float())
+        return logits + self.out_b[None, :, None, None]

@@ -1,0 +1,159 @@
+"""Eval-only building blocks of the Attention-ASPP-UNet, in NCHW.
+
+Counterpart of ``att_aspp_unet_tpu/nn/blocks.py`` for inference, built from
+the BN-folded packed plan of ``att_aspp_unet_tpu/infer/fast_forward.py``.
+Every module holds its weights as buffers in the model's compute dtype and
+its folded BatchNorm scale/bias in f32.
+
+Precision follows the packed plan: in bf16 each op computes in f32 on the
+bf16 operands and rounds its result to bf16; in f32 nothing is rounded (the
+reference-precision mode the tests hold against the flax model).  Every
+3x3 ConvBNReLU pair is one launch of kernel K1
+(``ops/kernels/fused_conv.fused_double_cbr``); the ASPP branches, the 1x1
+convs and the transposed conv are plain torch ops, as the JAX package left
+them to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.kernels.fused_conv import exact_f32, fused_double_cbr
+
+F32 = torch.float32
+
+
+def _affine(y, s, b):
+    return y * s[None, :, None, None] + b[None, :, None, None]
+
+
+def pointwise(x, w, s=None, b=None, relu=False, sigmoid=False):
+    """1x1 conv (N,Ci,H,W) x (Ci,Co) in f32, optional folded BN, ReLU or
+    sigmoid; result in x's dtype."""
+    y = torch.einsum("nchw,co->nohw", x.to(F32), w.to(F32))
+    if s is not None:
+        y = _affine(y, s, b)
+    if relu:
+        y = torch.relu(y)
+    if sigmoid:
+        y = torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+class FusedCBRPair(nn.Module):
+    """Two chained Conv3x3(pad 1, no bias) + folded BN + ReLU: one K1 launch.
+    Weights packed (Cout, 9*Cin) in (ky, kx, ci) order."""
+
+    def __init__(self, cin: int, cmid: int, cout: int, device=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        kw = dict(device=device)
+        self.register_buffer("w1", torch.zeros(cmid, 9 * cin, dtype=dtype, **kw))
+        self.register_buffer("s1", torch.ones(cmid, dtype=F32, **kw))
+        self.register_buffer("b1", torch.zeros(cmid, dtype=F32, **kw))
+        self.register_buffer("w2", torch.zeros(cout, 9 * cmid, dtype=dtype, **kw))
+        self.register_buffer("s2", torch.ones(cout, dtype=F32, **kw))
+        self.register_buffer("b2", torch.zeros(cout, dtype=F32, **kw))
+
+    def forward(self, x):
+        return fused_double_cbr(x, self.w1, self.s1, self.b1, self.w2,
+                                self.s2, self.b2)
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling bridge: 1x1, three dilated 3x3
+    (rates 6/12/18) and a global-pool branch, concatenated and projected by
+    a 1x1 conv; each conv followed by folded BN + ReLU.  Dropout is the
+    identity at eval."""
+
+    def __init__(self, cin: int, features: int, rates: Sequence[int] = (6, 12, 18),
+                 device=None, dtype=torch.bfloat16):
+        super().__init__()
+        self.rates = tuple(rates)
+        kw = dict(device=device)
+
+        def sb(name, c):
+            self.register_buffer(f"{name}_s", torch.ones(c, dtype=F32, **kw))
+            self.register_buffer(f"{name}_b", torch.zeros(c, dtype=F32, **kw))
+
+        self.register_buffer("b0_w", torch.zeros(cin, features, dtype=dtype, **kw))
+        sb("b0", features)
+        for i in range(len(self.rates)):
+            self.register_buffer(f"rate{i}_w", torch.zeros(
+                features, cin, 3, 3, dtype=dtype, **kw))
+            sb(f"rate{i}", features)
+        self.register_buffer("pool_w", torch.zeros(cin, features, dtype=dtype, **kw))
+        sb("pool", features)
+        n_feats = (len(self.rates) + 2) * features
+        self.register_buffer("proj_w", torch.zeros(n_feats, features, dtype=dtype, **kw))
+        sb("proj", features)
+
+    def forward(self, x):
+        feats = [pointwise(x, self.b0_w, self.b0_s, self.b0_b, relu=True)]
+        xf = x.to(F32)
+        for i, r in enumerate(self.rates):
+            with exact_f32():
+                y = F.conv2d(xf, getattr(self, f"rate{i}_w").to(F32),
+                             padding=r, dilation=r)
+            y = _affine(y, getattr(self, f"rate{i}_s"), getattr(self, f"rate{i}_b"))
+            feats.append(torch.relu(y).to(x.dtype))
+        m = xf.mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        p = pointwise(m, self.pool_w, self.pool_s, self.pool_b, relu=True)
+        feats.append(p.expand_as(feats[0]))
+        h = torch.cat(feats, dim=1)
+        return pointwise(h, self.proj_w, self.proj_s, self.proj_b, relu=True)
+
+
+class AttentionGateV1(nn.Module):
+    """v1 gate: ``x * sigmoid(BN(psi(relu(BN(Wg g) + BN(Wx x)))))``."""
+
+    def __init__(self, cg: int, cx: int, inter: int, device=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        kw = dict(device=device)
+        for name, ci, co in (("wg", cg, inter), ("wx", cx, inter),
+                             ("psi", inter, 1)):
+            self.register_buffer(f"{name}_w", torch.zeros(ci, co, dtype=dtype, **kw))
+            self.register_buffer(f"{name}_s", torch.ones(co, dtype=F32, **kw))
+            self.register_buffer(f"{name}_b", torch.zeros(co, dtype=F32, **kw))
+
+    def forward(self, g, x):
+        hg = pointwise(g, self.wg_w, self.wg_s, self.wg_b)
+        hx = pointwise(x, self.wx_w, self.wx_s, self.wx_b)
+        a = torch.relu(hg.to(F32) + hx.to(F32)).to(x.dtype)
+        a = pointwise(a, self.psi_w, self.psi_s, self.psi_b, sigmoid=True)
+        return x * a
+
+
+class UpBlock(nn.Module):
+    """Decoder stage: ConvTranspose 2x2 stride 2 of the gate signal, optional
+    v1 gate on the skip, concat ``[skip, g]``, one fused CBR pair."""
+
+    def __init__(self, cin: int, features: int, gated: bool, device=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        kw = dict(device=device)
+        # (u, v, ci, co), pre-flipped so out[2h+u, 2w+v] = x[h, w] @ k[u, v]
+        self.register_buffer("up_k", torch.zeros(2, 2, cin, features, dtype=dtype, **kw))
+        self.register_buffer("up_b", torch.zeros(features, dtype=F32, **kw))
+        self.att = (AttentionGateV1(features, features, features // 2,
+                                    device=device, dtype=dtype)
+                    if gated else None)
+        self.pair = FusedCBRPair(2 * features, features, features,
+                                 device=device, dtype=dtype)
+
+    def up(self, g):
+        t = torch.einsum("nchw,uvco->nohuwv", g.to(F32), self.up_k.to(F32))
+        t = t + self.up_b[None, :, None, None, None, None]
+        n, o, h, _, w, _ = t.shape
+        return t.reshape(n, o, 2 * h, 2 * w).to(g.dtype)
+
+    def forward(self, g, skip):
+        g = self.up(g)
+        if self.att is not None:
+            skip = self.att(g, skip)
+        return self.pair(torch.cat([skip, g], dim=1))

@@ -1,0 +1,108 @@
+"""Batched image primitives on ``(..., H, W)`` tensors.
+
+Counterpart of ``att_aspp_unet_tpu/ops/image.py``, with the same OpenCV
+semantics and border modes:
+
+- ``minmax_normalize_u8``  ~ ``cv2.normalize(..., 0, 255, NORM_MINMAX)``
+- ``median3x3``            ~ ``cv2.medianBlur(k=3)``      (BORDER_REPLICATE)
+- ``gaussian_blur``        ~ ``cv2.GaussianBlur((k,k),0)`` (BORDER_REFLECT_101)
+- ``resize_bilinear``      ~ ``cv2.resize(INTER_LINEAR)`` (half-pixel centers)
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def minmax_normalize_u8(frames: torch.Tensor) -> torch.Tensor:
+    """Per-frame min-max rescale to [0, 255] -> uint8.  f32 arithmetic as the
+    JAX package does it; ``torch.round`` rounds half to even like
+    ``jnp.round``.  Constant frames map to 0."""
+    x = frames.to(torch.float32)
+    lo = x.amin(dim=(-2, -1), keepdim=True)
+    hi = x.amax(dim=(-2, -1), keepdim=True)
+    scale = torch.where(hi > lo, 255.0 / (hi - lo), torch.zeros_like(hi))
+    y = (x - lo) * scale
+    return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
+
+
+def median3x3(frames: torch.Tensor) -> torch.Tensor:
+    """3x3 median with replicated borders, as Paeth's median-of-9 network
+    (19 min/max exchanges over nine shifted views)."""
+    H, W = frames.shape[-2], frames.shape[-1]
+    rows = torch.cat([frames[..., :1, :], frames, frames[..., -1:, :]], dim=-2)
+    xp = torch.cat([rows[..., :1], rows, rows[..., -1:]], dim=-1)
+    p = [xp[..., dy:dy + H, dx:dx + W] for dy in range(3) for dx in range(3)]
+
+    def ex(i, j):
+        a, b = p[i], p[j]
+        p[i], p[j] = torch.minimum(a, b), torch.maximum(a, b)
+
+    ex(1, 2); ex(4, 5); ex(7, 8)
+    ex(0, 1); ex(3, 4); ex(6, 7)
+    ex(1, 2); ex(4, 5); ex(7, 8)
+    ex(0, 3); ex(5, 8); ex(4, 7)
+    ex(3, 6); ex(1, 4); ex(2, 5)
+    ex(4, 7); ex(4, 2); ex(6, 4)
+    ex(4, 2)
+    return p[4].contiguous()
+
+
+# OpenCV's fixed small-Gaussian kernels used when sigma <= 0
+_CV2_SMALL_GAUSSIAN = {
+    1: np.array([1.0], np.float32),
+    3: np.array([0.25, 0.5, 0.25], np.float32),
+    5: np.array([0.0625, 0.25, 0.375, 0.25, 0.0625], np.float32),
+    7: np.array([0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375,
+                 0.03125], np.float32),
+}
+
+
+def gaussian_kernel1d(ksize: int, sigma: float = 0.0) -> np.ndarray:
+    """1-D Gaussian kernel with OpenCV's defaulting rules."""
+    if sigma <= 0 and ksize in _CV2_SMALL_GAUSSIAN:
+        return _CV2_SMALL_GAUSSIAN[ksize]
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    r = (ksize - 1) / 2
+    xs = np.arange(ksize) - r
+    k = np.exp(-(xs ** 2) / (2 * sigma ** 2))
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(frames: torch.Tensor, ksize: int = 5,
+                  sigma: float = 0.0) -> torch.Tensor:
+    """Separable Gaussian blur, reflect-101 borders; f32 result (float
+    inputs keep their dtype), summed tap by tap in the JAX order."""
+    k = [float(v) for v in gaussian_kernel1d(ksize, sigma)]
+    r = ksize // 2
+    x = frames.to(torch.float32)
+    lead = x.shape[:-2]
+    H, W = x.shape[-2], x.shape[-1]
+    x = x.reshape((-1, 1, H, W))
+    xp = F.pad(x, (r, r, r, r), mode="reflect")[:, 0]
+    kt = torch.tensor(k, dtype=torch.float32, device=x.device)
+    rows = sum(kt[i] * xp[:, i:i + H, :] for i in range(ksize))
+    out = sum(kt[j] * rows[:, :, j:j + W] for j in range(ksize))
+    dt = frames.dtype if frames.dtype.is_floating_point else torch.float32
+    return out.reshape(lead + (H, W)).to(dt)
+
+
+def resize_bilinear(frames: torch.Tensor, out_hw: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """Bilinear resize, half-pixel centers, no antialias — what
+    ``jax.image.resize(method="linear", antialias=False)`` computes.  Its
+    normalised triangle weights equal ``align_corners=False`` sampling with
+    the source coordinate clamped to the image, for down- and upscaling."""
+    lead = frames.shape[:-2]
+    H, W = frames.shape[-2], frames.shape[-1]
+    x = frames.to(torch.float32).reshape((-1, 1, H, W))
+    if (H, W) != tuple(out_hw):
+        x = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                          align_corners=False, antialias=False)
+    dt = frames.dtype if frames.dtype.is_floating_point else torch.float32
+    return x.reshape(lead + tuple(out_hw)).to(dt)
