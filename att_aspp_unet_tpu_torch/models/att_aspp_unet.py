@@ -22,7 +22,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 class AttentionASPPUNet(nn.Module):
     """Input (B, in_channels, S, S) with S a multiple of 16 -> logits
-    (B, num_classes, S, S) f32."""
+    (B, num_classes, S, S) f32.  Activations are channel-last in memory
+    between the blocks (``nn/blocks.py``)."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), device=None):
         super().__init__()
@@ -53,7 +54,8 @@ class AttentionASPPUNet(nn.Module):
         if S1 % 16 or S2 % 16:
             raise ValueError(f"input {S1}x{S2}: both sides must be multiples "
                              "of 16 (four 2x2 poolings)")
-        x = x.to(self.dtype)
+        # channel-last memory from here on (free for one input channel)
+        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x1 = self.d1(x)
         x2 = self.d2(F.max_pool2d(x1, 2))
         x3 = self.d3(F.max_pool2d(x2, 2))
@@ -63,5 +65,5 @@ class AttentionASPPUNet(nn.Module):
         d = self.u3(d, x3)
         d = self.u2(d, x2)
         d = self.u1(d, x1)
-        logits = torch.einsum("nchw,co->nohw", d.float(), self.out_w.float())
-        return logits + self.out_b[None, :, None, None]
+        logits = d.permute(0, 2, 3, 1).float() @ self.out_w.float()
+        return (logits + self.out_b).permute(0, 3, 1, 2)

@@ -1,4 +1,5 @@
-"""Eval-only building blocks of the Attention-ASPP-UNet, in NCHW.
+"""Eval-only building blocks of the Attention-ASPP-UNet: logical shape
+(N, C, H, W), memory channel-last.
 
 Counterpart of ``att_aspp_unet_tpu/nn/blocks.py`` for inference, built from
 the BN-folded packed plan of ``att_aspp_unet_tpu/infer/fast_forward.py``.
@@ -12,6 +13,13 @@ reference-precision mode the tests hold against the flax model).  Every
 (``ops/kernels/fused_conv.fused_double_cbr``); the ASPP branches, the 1x1
 convs and the transposed conv are plain torch ops, as the JAX package left
 them to XLA.
+
+Layout: every block takes and returns (N, C, H, W) tensors whose memory is
+``torch.channels_last`` (NHWC strides), the layout K1 reads and writes, so
+no pair pays a layout copy.  The 1x1 convs and the transposed conv are
+matmuls over the last dimension of the NHWC view; pooling and concat keep
+the format; the ASPP's exact-f32 dilated convs alone run on a contiguous
+copy of the bridge tensor.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels.fused_conv import exact_f32, fused_double_cbr
+from ..ops.kernels.fused_conv import (exact_f32, fused_double_cbr,
+                                       prepack_pair)
 
 F32 = torch.float32
 
@@ -33,20 +42,23 @@ def _affine(y, s, b):
 
 def pointwise(x, w, s=None, b=None, relu=False, sigmoid=False):
     """1x1 conv (N,Ci,H,W) x (Ci,Co) in f32, optional folded BN, ReLU or
-    sigmoid; result in x's dtype."""
-    y = torch.einsum("nchw,co->nohw", x.to(F32), w.to(F32))
+    sigmoid; result in x's dtype, channel-last in memory (a matmul over the
+    last dimension of the NHWC view, returned as its NCHW view)."""
+    y = x.permute(0, 2, 3, 1).to(F32) @ w.to(F32)
     if s is not None:
-        y = _affine(y, s, b)
+        y = y * s + b
     if relu:
         y = torch.relu(y)
     if sigmoid:
         y = torch.sigmoid(y)
-    return y.to(x.dtype)
+    return y.to(x.dtype).permute(0, 3, 1, 2)
 
 
 class FusedCBRPair(nn.Module):
     """Two chained Conv3x3(pad 1, no bias) + folded BN + ReLU: one K1 launch.
-    Weights packed (Cout, 9*Cin) in (ky, kx, ci) order."""
+    Weights packed (Cout, 9*Cin) in (ky, kx, ci) order; on a card they are
+    put into the kernel's order once, at the first forward after they were
+    loaded or changed."""
 
     def __init__(self, cin: int, cmid: int, cout: int, device=None,
                  dtype=torch.bfloat16):
@@ -58,10 +70,23 @@ class FusedCBRPair(nn.Module):
         self.register_buffer("w2", torch.zeros(cout, 9 * cmid, dtype=dtype, **kw))
         self.register_buffer("s2", torch.ones(cout, dtype=F32, **kw))
         self.register_buffer("b2", torch.zeros(cout, dtype=F32, **kw))
+        self._packed = None
+        self._packed_of = None
+
+    def packed(self):
+        """The weights in the kernel's order, rebuilt only when ``w1`` or
+        ``w2`` was replaced, moved or written to."""
+        of = tuple((w.data_ptr(), w._version, w.device) for w in
+                   (self.w1, self.w2))
+        if self._packed_of != of:
+            self._packed = prepack_pair(self.w1, self.w2)
+            self._packed_of = of
+        return self._packed
 
     def forward(self, x):
+        packed = self.packed() if x.device.type == "cuda" else None
         return fused_double_cbr(x, self.w1, self.s1, self.b1, self.w2,
-                                self.s2, self.b2)
+                                self.s2, self.b2, packed=packed)
 
 
 class ASPP(nn.Module):
@@ -94,7 +119,11 @@ class ASPP(nn.Module):
 
     def forward(self, x):
         feats = [pointwise(x, self.b0_w, self.b0_s, self.b0_b, relu=True)]
-        xf = x.to(F32)
+        # NCHW for the exact-f32 dilated convs: on channel-last f32 input
+        # without TF32, cuDNN falls to a direct kernel that took ~30x as long
+        # on an NVIDIA H100 (PERF.md); the bridge tensor is the model's
+        # smallest
+        xf = x.to(F32).contiguous()
         for i, r in enumerate(self.rates):
             with exact_f32():
                 y = F.conv2d(xf, getattr(self, f"rate{i}_w").to(F32),
@@ -147,10 +176,13 @@ class UpBlock(nn.Module):
                                  device=device, dtype=dtype)
 
     def up(self, g):
-        t = torch.einsum("nchw,uvco->nohuwv", g.to(F32), self.up_k.to(F32))
-        t = t + self.up_b[None, :, None, None, None, None]
-        n, o, h, _, w, _ = t.shape
-        return t.reshape(n, o, 2 * h, 2 * w).to(g.dtype)
+        n, ci, h, w = g.shape
+        o = self.up_k.shape[-1]
+        k = self.up_k.to(F32).permute(2, 0, 1, 3).reshape(ci, 4 * o)
+        t = (g.permute(0, 2, 3, 1).to(F32) @ k).reshape(n, h, w, 2, 2, o)
+        t = (t + self.up_b).to(g.dtype)                # (n, h, w, u, v, o)
+        t = t.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, o)
+        return t.permute(0, 3, 1, 2)
 
     def forward(self, g, skip):
         g = self.up(g)

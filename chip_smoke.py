@@ -9,9 +9,12 @@ Phases (any failure exits non-zero and prints no result line):
    (one ``nvcc`` per source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes — K1 ``fused_double_cbr`` at the eight conv-pair
-   shapes of the base_c 48 model at 512x512 (bf16, rtol/atol 2e-2), K2
-   ``clahe_interp`` through CLAHE on a 140 x 562 x 744 sweep (bit-exact) —
-   and time kernel, plain version and a library yardstick;
+   shapes of the base_c 48 model at 512x512 (bf16 channel-last tensors,
+   rtol/atol 2e-2; the line of each pair names the path it took, wgmma or
+   mma.sync), K2 ``clahe_interp`` through CLAHE on a 140 x 562 x 744 sweep
+   (bit-exact) — and time kernel, plain version and a library yardstick
+   (for K1 cuDNN's bf16 convolutions on channel-last and on contiguous
+   tensors; the faster sum is ``library_ms``);
 3. drive the port's ``predict`` CLI on a synthetic 140-frame ``.mha`` sweep
    with the repo's trained weights (base_c 48, hflip TTA), with the kernel
    launch counters zeroed just before and read just after; check the
@@ -98,22 +101,24 @@ def phase_k1(dev):
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf = torch.bfloat16
     N = 32
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops=0.0,
-               bytes=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, lib_cl=0.0, lib_nchw=0.0, bound_ms=0.0,
+               flops=0.0, bytes=0.0)
     max_err = 0.0
     for name, cin, cmid, cout, hw in PAIR_SHAPES:
         def rnd(*shape):
             return torch.randn(*shape, generator=g, device=dev)
 
-        x = rnd(N, cin, hw, hw).to(bf)
+        x = rnd(N, cin, hw, hw).to(bf).contiguous(
+            memory_format=torch.channels_last)
         w1 = (rnd(cmid, 9 * cin) / (9 * cin) ** 0.5).to(bf)
         w2 = (rnd(cout, 9 * cmid) / (9 * cmid) ** 0.5).to(bf)
         s1 = torch.rand(cmid, generator=g, device=dev) + 0.5
         s2 = torch.rand(cout, generator=g, device=dev) + 0.5
         b1, b2 = rnd(cmid) * 0.1, rnd(cout) * 0.1
         args = (x, w1, s1, b1, w2, s2, b2)
+        packed = fc.prepack_pair(w1, w2)     # once, as FusedCBRPair does
 
-        got = fc.fused_double_cbr(*args)
+        got = fc.fused_double_cbr(*args, packed=packed)
         torch.cuda.synchronize()
         want = fc.fused_double_cbr_reference(*args).float()
         err = (got.float() - want).abs()
@@ -124,40 +129,51 @@ def phase_k1(dev):
             raise AssertionError(f"K1 {name}: {n_bad} outputs outside "
                                  "rtol/atol 2e-2")
 
-        w1o = fc.unpack_conv_weight(w1, cin).contiguous()
-        w2o = fc.unpack_conv_weight(w2, cmid).contiguous()
         sb = [t.to(bf)[None, :, None, None] for t in (s1, b1, s2, b2)]
 
-        def library():
-            h = F.relu(F.conv2d(x, w1o, padding=1) * sb[0] + sb[1])
-            return F.relu(F.conv2d(h, w2o, padding=1) * sb[2] + sb[3])
+        def library(x, fmt):
+            w1o = fc.unpack_conv_weight(w1, cin).contiguous(memory_format=fmt)
+            w2o = fc.unpack_conv_weight(w2, cmid).contiguous(memory_format=fmt)
 
-        ms = cuda_ms(lambda: fc.fused_double_cbr(*args))
+            def run():
+                h = F.relu(F.conv2d(x, w1o, padding=1) * sb[0] + sb[1])
+                return F.relu(F.conv2d(h, w2o, padding=1) * sb[2] + sb[3])
+            return run
+
+        ms = cuda_ms(lambda: fc.fused_double_cbr(*args, packed=packed))
         plain_ms = cuda_ms(lambda: fc.fused_double_cbr_reference(*args), 3)
-        lib_ms = cuda_ms(library)
+        lib_cl = cuda_ms(library(x, torch.channels_last))
+        lib_nchw = cuda_ms(library(x.contiguous(), torch.contiguous_format))
         flops = 2.0 * N * hw * hw * 9 * (cin * cmid + cmid * cout)
         nbytes = (2 * (x.numel() + w1.numel() + w2.numel() + N * cout * hw * hw)
                   + 4 * (2 * cmid + 2 * cout))
         b_ms, _ = bound(flops, nbytes, PEAK_BF16_FLOPS)
         log(f"[K1] {name} N={N} {cin}->{cmid}->{cout} @{hw}^2: kernel "
-            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f}"
-            f" ms, cuDNN bf16 {lib_ms:.3f} ms, bound {b_ms:.3f} ms, "
-            f"max|err| {float(max_err):.4g}")
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                     ("bound_ms", b_ms), ("flops", flops), ("bytes", nbytes)):
+            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{'wgmma' if packed.wgmma else 'mma.sync'} path, tile "
+            f"{packed.th}x16, K-chunk {packed.kc}), plain {plain_ms:.3f}"
+            f" ms, cuDNN bf16 channel-last {lib_cl:.3f} ms / NCHW "
+            f"{lib_nchw:.3f} ms, bound {b_ms:.3f} ms, max|err| "
+            f"{float(max_err):.4g}")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("lib_cl", lib_cl),
+                     ("lib_nchw", lib_nchw), ("bound_ms", b_ms),
+                     ("flops", flops), ("bytes", nbytes)):
             tot[k] += v
         del x, w1, w2, args
         torch.cuda.empty_cache()
     _, bound_by = bound(tot["flops"], tot["bytes"], PEAK_BF16_FLOPS)
     log(f"[K1] all eight pairs (one 32-frame micro-batch): kernel "
         f"{tot['ms']:.3f} ms = {tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s, "
-        f"bound {tot['bound_ms']:.3f} ms ({bound_by})")
+        f"cuDNN bf16 channel-last {tot['lib_cl']:.3f} ms / NCHW "
+        f"{tot['lib_nchw']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+        f"({bound_by})")
     return {"name": "fused_double_cbr", "route": "cuda",
             "source": "att_aspp_unet_tpu_torch/csrc/fused_double_cbr.cu",
             "replaces": "att_aspp_unet_tpu/ops/pallas/fused_conv.py:140",
             "max_abs_err": max_err, "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": bound_by, "library_ms": tot["library_ms"]}
+            "bound_by": bound_by,
+            "library_ms": min(tot["lib_cl"], tot["lib_nchw"])}
 
 
 def phase_k2(dev, sweep):

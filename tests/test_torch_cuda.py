@@ -46,27 +46,102 @@ MAIN_PATH_PAIRS = [(1, 48, 48, 512), (48, 96, 96, 256), (96, 192, 192, 128),
                    (384, 192, 192, 128), (192, 96, 96, 256), (96, 48, 48, 512)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cin,cmid,cout,hw", MAIN_PATH_PAIRS + [(5, 7, 6, 20)])
-def test_fused_double_cbr_kernel_matches_plain(rng, cuda_device, cin, cmid,
-                                               cout, hw):
+def _pair_args(rng, dev, N, cin, cmid, cout, H, W):
+    """Kernel arguments on ``dev``: bf16 x in channel-last memory, canonical
+    packed weights, folded BN."""
     x, w1, w2, ((g1, b1, m1, v1), (g2, b2, m2, v2)) = _pair_case(
-        rng, 2, cin, cmid, cout, hw, hw + 4 if hw < 64 else hw)
+        rng, N, cin, cmid, cout, H, W)
     s1, o1 = tfc.fold_batchnorm(g1, b1, m1, v1)
     s2, o2 = tfc.fold_batchnorm(g2, b2, m2, v2)
-    dev, bf = cuda_device, torch.bfloat16
-    args = (torch.from_numpy(x).to(dev, bf),
+    bf = torch.bfloat16
+    return (torch.from_numpy(x).to(dev, bf)
+            .contiguous(memory_format=torch.channels_last),
             (tfc.pack_conv_weight(w1) / np.sqrt(cin)).to(dev, bf),
             torch.from_numpy(s1).to(dev), torch.from_numpy(o1).to(dev),
             (tfc.pack_conv_weight(w2) / np.sqrt(cmid)).to(dev, bf),
             torch.from_numpy(s2).to(dev), torch.from_numpy(o2).to(dev))
+
+
+def _assert_kernel_matches_plain(args, wgmma=None):
+    """One launch against the plain version at rtol/atol 2e-2; ``wgmma``
+    forces a path (None: the one the wrapper picks)."""
+    packed = tfc.prepack_pair(args[1], args[4], wgmma=wgmma)
     before = tfc.fused_double_cbr.launches
-    got = tfc.fused_double_cbr(*args)
+    got = tfc.fused_double_cbr(*args, packed=packed)
     torch.cuda.synchronize()
     assert tfc.fused_double_cbr.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
     want = tfc.fused_double_cbr_reference(*args)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=2e-2, atol=2e-2)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cmid,cout,hw", MAIN_PATH_PAIRS + [(5, 7, 6, 20)])
+def test_fused_double_cbr_kernel_matches_plain(rng, cuda_device, cin, cmid,
+                                               cout, hw):
+    """The mma.sync path, which takes every shape."""
+    _assert_kernel_matches_plain(_pair_args(
+        rng, cuda_device, 2, cin, cmid, cout, hw, hw + 4 if hw < 64 else hw),
+        wgmma=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cmid,cout,hw", MAIN_PATH_PAIRS[1:])
+def test_fused_double_cbr_wgmma_path_matches_plain(rng, cuda_device, cin, cmid,
+                                                   cout, hw):
+    """The wgmma path at the seven main-path shapes it takes (it is the path
+    the wrapper picks for them)."""
+    assert tfc.wgmma_takes(cin, cmid, cout)
+    _assert_kernel_matches_plain(_pair_args(rng, cuda_device, 2, cin, cmid,
+                                            cout, hw, hw), wgmma=True)
+
+
+# N = 1; a frame that is no multiple of the tile; Cmid != Cout; channel
+# counts that are multiples of 8 but not of 16; Cin = 1 with several row
+# blocks (the tap-as-K path with more than one block of rows).
+EDGE_PAIRS = [(1, 96, 48, 48, 512, 512), (1, 768, 384, 384, 64, 64),
+              (2, 96, 48, 48, 72, 40), (2, 32, 64, 16, 64, 64),
+              (2, 24, 40, 8, 33, 47), (1, 1, 80, 48, 37, 50),
+              (3, 16, 16, 8, 9, 7), (2, 48, 80, 72, 50, 23)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wgmma", [False, True])
+@pytest.mark.parametrize("N,cin,cmid,cout,H,W", EDGE_PAIRS)
+def test_fused_double_cbr_kernel_edge_shapes(rng, cuda_device, N, cin, cmid,
+                                             cout, H, W, wgmma):
+    if wgmma and not tfc.wgmma_takes(cin, cmid, cout):
+        with pytest.raises(ValueError):
+            tfc.prepack_pair(torch.zeros(cmid, 9 * cin),
+                             torch.zeros(cout, 9 * cmid), wgmma=True)
+        return
+    _assert_kernel_matches_plain(_pair_args(rng, cuda_device, N, cin, cmid,
+                                            cout, H, W), wgmma=wgmma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [96, 24])
+def test_fused_double_cbr_prepacked_equals_on_the_fly(rng, cuda_device, cin):
+    """Either path (Cin 96: wgmma, Cin 24: mma.sync): weights prepacked once
+    and weights prepacked inside the call give equal bits; a prepacked
+    buffer of the wrong size is refused."""
+    args = _pair_args(rng, cuda_device, 2, cin, 48, 48, 72, 40)
+    packed = tfc.prepack_pair(args[1], args[4])
+    assert packed.wgmma == (cin == 96)
+    assert torch.equal(tfc.fused_double_cbr(*args, packed=packed),
+                       tfc.fused_double_cbr(*args))
+    wrong = packed._replace(w1p=packed.w1p[:-8])
+    with pytest.raises(ValueError):
+        tfc.fused_double_cbr(*args, packed=wrong)
+
+
+@pytest.mark.cuda
+def test_fused_double_cbr_rejects_contiguous_nchw(rng, cuda_device):
+    args = _pair_args(rng, cuda_device, 1, 8, 16, 16, 32, 32)
+    with pytest.raises(ValueError, match="channels_last"):
+        tfc.fused_double_cbr(args[0].contiguous(), *args[1:])
 
 
 @pytest.mark.cuda

@@ -97,3 +97,66 @@ def test_full_width_in_repo_weights_forward():
     model = jax_variables_to_torch(vnp, ModelConfig(compute_dtype="float32"))
     got = model(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+
+
+def test_every_pair_sees_channel_last_input_and_layout_changes_no_value():
+    """The model runs channel-last between its blocks: each FusedCBRPair is
+    handed a tensor in ``torch.channels_last`` memory (the layout kernel K1
+    reads, so no pair pays a copy) and returns one.  The input's own memory
+    format changes no logit."""
+    from att_aspp_unet_tpu_torch.nn.blocks import FusedCBRPair
+
+    base_c = 4
+    vnp = jax.tree_util.tree_map(np.asarray, random_variables(base_c))
+    model = jax_variables_to_torch(vnp, ModelConfig(base_c=base_c))
+    seen = []
+
+    def hook(mod, args, out):
+        seen.append((args[0].is_contiguous(memory_format=torch.channels_last),
+                     tuple(args[0].shape)))
+
+    pairs = [m for m in model.modules() if isinstance(m, FusedCBRPair)]
+    assert len(pairs) == 8
+    for m in pairs:
+        m.register_forward_hook(hook)
+    x = torch.from_numpy(np.random.default_rng(3).random((2, 1, 64, 64))
+                         .astype(np.float32))
+    logits = model(x)
+    assert len(seen) == 8 and all(ok for ok, _ in seen), seen
+    assert [s[1] for _, s in seen] == [1, 4, 8, 16, 64, 32, 16, 8]
+    assert logits.shape == (2, 1, 64, 64) and logits.dtype == torch.float32
+
+    # a 3-channel model: contiguous and channel-last inputs, same logits
+    cfg3 = ModelConfig(base_c=base_c, in_channels=3)
+    from att_aspp_unet_tpu_torch.models.att_aspp_unet import AttentionASPPUNet
+    m3 = AttentionASPPUNet(cfg3).eval()
+    g = torch.Generator().manual_seed(0)
+    for name, buf in m3.named_buffers():
+        buf.copy_(torch.randn(buf.shape, generator=g) * 0.1
+                  + (1.0 if name.endswith("_s") or name[-2:] in ("s1", "s2")
+                     else 0.0))
+    x3 = torch.rand(1, 3, 32, 32, generator=g)
+    a = m3(x3)
+    b = m3(x3.contiguous(memory_format=torch.channels_last))
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_pair_prepacks_its_weights_once_per_weight_set():
+    """``FusedCBRPair.packed()`` puts the weights into the kernel's order
+    once and again only after they were written to or replaced."""
+    from att_aspp_unet_tpu_torch.nn.blocks import FusedCBRPair
+    from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as tfc
+
+    pair = FusedCBRPair(8, 16, 16)
+    g = torch.Generator().manual_seed(1)
+    pair.w1.copy_(torch.randn(pair.w1.shape, generator=g))
+    pair.w2.copy_(torch.randn(pair.w2.shape, generator=g))
+    first = pair.packed()
+    assert pair.packed() is first
+    assert torch.equal(tfc.unpack_prepacked(first.w1p, 16, 8, first.kc), pair.w1)
+    assert torch.equal(tfc.unpack_prepacked(first.w2p, 16, 16, first.kc), pair.w2)
+    pair.load_state_dict({k: torch.ones_like(v)
+                          for k, v in pair.state_dict().items()})
+    second = pair.packed()
+    assert second is not first
+    assert torch.equal(tfc.unpack_prepacked(second.w1p, 16, 8, second.kc), pair.w1)
