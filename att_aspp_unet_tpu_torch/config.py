@@ -1,11 +1,11 @@
-"""Configuration of the predict path: the fields of
-``att_aspp_unet_tpu/config.py`` that this path reads, with the same names and
-defaults."""
+"""Configuration of the serving paths (direct, cascade, bulk, ROI container):
+the fields of ``att_aspp_unet_tpu/config.py`` that these paths read, with the
+same names and defaults."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -42,6 +42,49 @@ class PredictConfig:
     min_area_frac: float = 0.0015
     close_kernel: int = 7
     frame_batch: int = 16        # frames per forward micro-batch
+    # tier-2 micro-batch of bulk (multi-sweep) cascade serving: the promoted
+    # frames of all sweeps of a group share micro-batches of this size
+    bulk_frame_batch: int = 16
+    roi_size: int = 224          # ROI deployment path: crop side
+    subsample_frames: int = 128  # ROI path: linspace subsample of the sweep
+    # Two-tier cascade (opt-in): scout every frame with a cheap low-resolution
+    # forward, run the full forward only on the ``cascade_scouts`` best-ranked
+    # frames; ranking, refinement and selection then run on full-resolution
+    # probabilities exactly as in the direct path.
+    cascade: bool = False
+    cascade_img_size: int = 256  # scout size of a scout-less cascade; a
+    #                              scout's summary.json img_size overrides it
+    cascade_scouts: int = 8      # frames promoted to the full forward
+    # enhance the scout tier at the scout size and only the promoted frames
+    # at native resolution (tier 2 stays identical to the direct path)
+    cascade_lowres_enhance: bool = True
+    cascade_scout_batch: int = 128   # scout micro-batch; 0 = frame_batch
+    # optional distilled scout: flat-npz weights of a smaller model used for
+    # the tier-1 ranking forward only.  base_c / clahe None = read from the
+    # summary.json next to the weights; thr 0 = adopt the scout's thr.json
+    cascade_scout_weights: Optional[str] = None
+    cascade_scout_base_c: Optional[int] = None
+    cascade_scout_clahe: Optional[bool] = None
+    cascade_scout_rank: str = "refined"   # or "closed": no hole-fill proxy
+    cascade_scout_thr: float = 0.0
+
+
+@dataclass(frozen=True)
+class ContainerConfig:
+    """Grand-Challenge container contract: read
+    ``<input>/images/stacked-fetal-ultrasound/*.mha|*.tiff``, write
+    ``<output>/images/fetal-abdomen-segmentation/<case>.mha`` (uint8 {0, 1},
+    spacing 0.28, compressed) and ``<output>/fetal-abdomen-frame-number.json``.
+    ``MODEL_TAG`` selects the model, ``CASE_ID`` names the output."""
+
+    input_path: str = "./test/input"
+    output_path: str = "./test/output"
+    model_tag: str = "baseline"      # "baseline" | "att_aspp"
+    case_id: str = "output"
+    spacing_mm: float = 0.28
+    # as in the JAX package's config; read by its AC analysis tools, which
+    # are not ported, and by nothing in this package yet
+    frames_per_sweep: int = 140
 
 
 @dataclass(frozen=True)
@@ -49,3 +92,4 @@ class Config:
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     predict: PredictConfig = field(default_factory=PredictConfig)
+    container: ContainerConfig = field(default_factory=ContainerConfig)

@@ -15,11 +15,13 @@ Counterpart of ``att_aspp_unet_tpu/ops/clahe.py`` (OpenCV
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from .image import bin_counts
 from .kernels.clahe_interp import clahe_interp
 
 
@@ -40,8 +42,7 @@ def _compute_luts(xe: torch.Tensor, tiles_y: int, tiles_x: int,
     tiles = xe.reshape(N, tiles_y, th, tiles_x, tw).permute(0, 1, 3, 2, 4)
     tiles = tiles.reshape(n_tiles, tile_area).long()
     tile_id = torch.arange(n_tiles, device=xe.device)[:, None] * 256
-    hist = torch.bincount((tiles + tile_id).reshape(-1),
-                          minlength=n_tiles * 256).reshape(n_tiles, 256)
+    hist = bin_counts(tiles + tile_id, n_tiles * 256).reshape(n_tiles, 256)
 
     clip = max(int(clip_limit * tile_area / 256), 1)
     clipped = torch.minimum(hist, torch.full_like(hist, clip))
@@ -55,7 +56,7 @@ def _compute_luts(xe: torch.Tensor, tiles_y: int, tiles_x: int,
     bonus = ((idx % step == 0) & (idx // step < residual)).long()
     clipped = clipped + torch.where(residual > 0, bonus, 0)
 
-    lut_scale = torch.tensor(np.float32(255.0 / tile_area), device=xe.device)
+    lut_scale = float(np.float32(255.0 / tile_area))      # an f32 value
     cdf = torch.cumsum(clipped, dim=1).to(torch.float32)
     luts = torch.clamp(torch.round(cdf * lut_scale), 0, 255)
     return luts.reshape(N, tiles_y, tiles_x, 256)
@@ -82,6 +83,26 @@ def corner_weights(th: int, tw: int) -> np.ndarray:
     return np.stack([w11, w12, w21, w22], axis=-1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_constants(H: int, W: int, tiles_y: int, tiles_x: int, device):
+    """The index and weight tensors that depend only on the frame size and
+    the grid, made once per size and device (an upload from host memory
+    makes the host wait for the device, so none is left in the per-sweep
+    path): reflect-101 row and column indices of the padded frame, the tile
+    rows and columns of each dual-grid block's corners, the corner weights."""
+    pad_h, pad_w = (-H) % tiles_y, (-W) % tiles_x
+    th, tw = (H + pad_h) // tiles_y, (W + pad_w) // tiles_x
+    By, Bx = tiles_y + 1, tiles_x + 1
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return (dev(_reflect101_index(H, pad_h)), dev(_reflect101_index(W, pad_w)),
+            dev(np.clip(np.arange(-1, By), 0, tiles_y - 1)),
+            dev(np.clip(np.arange(-1, Bx), 0, tiles_x - 1)),
+            dev(corner_weights(th, tw)))
+
+
 def clahe_tables(frames: torch.Tensor, clip_limit: float = 1.0,
                  grid: Tuple[int, int] = (8, 8)):
     """Steps 1-3 and the dual-grid regrouping: (N, H, W) uint8 ->
@@ -92,10 +113,9 @@ def clahe_tables(frames: torch.Tensor, clip_limit: float = 1.0,
     dev = frames.device
     pad_h = (-H) % tiles_y
     pad_w = (-W) % tiles_x
+    ri, ci, ry, rx, wts = _grid_constants(H, W, tiles_y, tiles_x, dev)
     xe = frames
     if pad_h or pad_w:
-        ri = torch.as_tensor(_reflect101_index(H, pad_h), device=dev)
-        ci = torch.as_tensor(_reflect101_index(W, pad_w), device=dev)
         xe = frames[:, ri][:, :, ci]
     th, tw = (H + pad_h) // tiles_y, (W + pad_w) // tiles_x
 
@@ -111,16 +131,11 @@ def clahe_tables(frames: torch.Tensor, clip_limit: float = 1.0,
     blocks = blocks.reshape(N, By * Bx, th * tw).contiguous()
 
     # corner LUTs per block: block k uses tile rows clamp(k-1), clamp(k)
-    ry = torch.as_tensor(np.clip(np.arange(-1, By), 0, tiles_y - 1),
-                         device=dev)
-    rx = torch.as_tensor(np.clip(np.arange(-1, Bx), 0, tiles_x - 1),
-                         device=dev)
     lpad = luts[:, ry][:, :, rx]                      # (N, By+1, Bx+1, 256)
     corner = torch.stack([lpad[:, 0:By, 0:Bx], lpad[:, 0:By, 1:Bx + 1],
                           lpad[:, 1:By + 1, 0:Bx], lpad[:, 1:By + 1, 1:Bx + 1]],
                          dim=-1)                      # (N, By, Bx, 256, 4)
     corner = corner.reshape(N, By * Bx, 256, 4).contiguous()
-    wts = torch.as_tensor(corner_weights(th, tw), device=dev)
     return blocks, corner, wts
 
 

@@ -7,6 +7,8 @@ semantics and border modes:
 - ``median3x3``            ~ ``cv2.medianBlur(k=3)``      (BORDER_REPLICATE)
 - ``gaussian_blur``        ~ ``cv2.GaussianBlur((k,k),0)`` (BORDER_REFLECT_101)
 - ``resize_bilinear``      ~ ``cv2.resize(INTER_LINEAR)`` (half-pixel centers)
+- ``resize_nearest``       ~ ``jax.image.resize(method="nearest")``
+- ``bin_counts``           ~ ``np.bincount(minlength=...)``
 """
 
 from __future__ import annotations
@@ -85,9 +87,10 @@ def gaussian_blur(frames: torch.Tensor, ksize: int = 5,
     H, W = x.shape[-2], x.shape[-1]
     x = x.reshape((-1, 1, H, W))
     xp = F.pad(x, (r, r, r, r), mode="reflect")[:, 0]
-    kt = torch.tensor(k, dtype=torch.float32, device=x.device)
-    rows = sum(kt[i] * xp[:, i:i + H, :] for i in range(ksize))
-    out = sum(kt[j] * rows[:, :, j:j + W] for j in range(ksize))
+    # the taps are Python floats holding f32 values: the products are the f32
+    # ones, and no constant has to be copied to the device
+    rows = sum(k[i] * xp[:, i:i + H, :] for i in range(ksize))
+    out = sum(k[j] * rows[:, :, j:j + W] for j in range(ksize))
     dt = frames.dtype if frames.dtype.is_floating_point else torch.float32
     return out.reshape(lead + (H, W)).to(dt)
 
@@ -106,3 +109,47 @@ def resize_bilinear(frames: torch.Tensor, out_hw: Tuple[int, int]
                           align_corners=False, antialias=False)
     dt = frames.dtype if frames.dtype.is_floating_point else torch.float32
     return x.reshape(lead + tuple(out_hw)).to(dt)
+
+
+def nearest_source_index(n_in: int, n_out: int) -> np.ndarray:
+    """Source index of every output position of a nearest-neighbour resize,
+    as ``jax.image.resize(method="nearest")`` takes it: half-pixel centres,
+    ``floor((i + 0.5) * n_in / n_out)`` in f32 (``F.interpolate(mode=
+    "nearest")`` takes ``floor(i * n_in / n_out)`` instead).
+
+    The f32 rounding decides positions where the quotient is an integer
+    (224 -> 562: i = 140 gives exactly 56).  XLA folds the two constants of
+    the jitted expression into one factor, ``n_in * (1 / n_out)``, and the
+    JAX package's CPU results follow from that factor (there: 55), so it is
+    computed the same way here."""
+    f32 = np.float32
+    factor = f32(n_in) * (f32(1.0) / f32(n_out))
+    pos = (np.arange(n_out, dtype=f32) + f32(0.5)) * factor
+    return np.minimum(np.floor(pos).astype(np.int64), n_in - 1)
+
+
+def resize_nearest(frames: torch.Tensor, out_hw: Tuple[int, int]
+                   ) -> torch.Tensor:
+    """Nearest-neighbour resize of (..., H, W) (mask-safe: introduces no new
+    values), one index gather per axis whose size changes."""
+    H, W = frames.shape[-2], frames.shape[-1]
+    out = frames
+    if H != out_hw[0]:
+        rows = torch.from_numpy(nearest_source_index(H, out_hw[0]))
+        out = out.index_select(-2, rows.to(frames.device))
+    if W != out_hw[1]:
+        cols = torch.from_numpy(nearest_source_index(W, out_hw[1]))
+        out = out.index_select(-1, cols.to(frames.device))
+    return out
+
+
+def bin_counts(idx: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Occurrences of each value 0..n_bins-1 in the int64 tensor ``idx``
+    (``torch.bincount(idx, minlength=n_bins)`` for values in range).  On a
+    card ``torch.bincount`` reads the tensor's extremes back to size its
+    output; ``torch.histc`` with given bounds runs the same histogram kernel
+    on integers without reading anything, so the host does not wait."""
+    flat = idx.reshape(-1)
+    if flat.is_cuda:
+        return torch.histc(flat, bins=n_bins, min=0, max=n_bins)
+    return torch.bincount(flat, minlength=n_bins)

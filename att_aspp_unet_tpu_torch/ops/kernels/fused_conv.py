@@ -27,6 +27,20 @@ import torch.nn.functional as F
 from . import _build
 
 
+def model_pairs(base_c: int, size: int):
+    """The eight conv pairs that the Attention-ASPP-UNet of width ``base_c``
+    gives the kernel on a ``size`` x ``size`` input, in forward order:
+    (name, Cin, Cmid, Cout, H = W)."""
+    c = base_c
+    return [("d1", 1, c, c, size), ("d2", c, 2 * c, 2 * c, size // 2),
+            ("d3", 2 * c, 4 * c, 4 * c, size // 4),
+            ("d4", 4 * c, 8 * c, 8 * c, size // 8),
+            ("u4", 16 * c, 8 * c, 8 * c, size // 8),
+            ("u3", 8 * c, 4 * c, 4 * c, size // 4),
+            ("u2", 4 * c, 2 * c, 2 * c, size // 2),
+            ("u1", 2 * c, c, c, size)]
+
+
 def pack_conv_weight(hwio) -> torch.Tensor:
     """(3, 3, Cin, Cout) HWIO kernel -> (Cout, 9*Cin) in (ky, kx, ci) order."""
     hwio = torch.as_tensor(np.asarray(hwio))

@@ -3,5 +3,6 @@
 from .cc import label_components, largest_component  # noqa: F401
 from .morphology import (binary_closing, binary_dilation,  # noqa: F401
                          binary_erosion, fill_holes, structuring_ellipse)
-from .refine import refine_mask  # noqa: F401
-from .select import select_best_frame_exact  # noqa: F401
+from .refine import postprocess_roi_stack, refine_mask  # noqa: F401
+from .select import (select_best_frame_exact,  # noqa: F401
+                     select_max_area_frame)

@@ -11,16 +11,48 @@ labels are identical:
   of ``run_index * L - value`` (the run index is non-decreasing along the
   scan, so the max stays in the current run);
 - iterations stop when nothing changes or at ``max_iters``.
+
+Deciding that nothing changed needs a flag from the device in every
+iteration, and the host waits for each.  Inside :func:`speculative` the loops
+run a fixed number of iterations instead and only record, on the device,
+whether the last one still changed anything; the caller reads that record
+together with its results and repeats the work with the exact loops if it is
+set.  Extra iterations at a fixed point change nothing, so an unset record
+means the exact loops' result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
+from typing import List, Optional
 
 import torch
 
+from ..ops.image import bin_counts
+
 INF = 2 ** 30
+# iterations a speculative loop runs; the masks of this pipeline (blobs,
+# rings, speckle) settle in one or two
+SPECULATIVE_ITERS = 4
+_unsettled: Optional[List[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def speculative():
+    """Run every :func:`fixed_point` of the block without reading the device.
+    Yields the list that collects one 0-d bool tensor per loop: true where
+    the loop had not settled after ``SPECULATIVE_ITERS`` iterations.  Not
+    re-entrant, and meant for one thread."""
+    global _unsettled
+    if _unsettled is not None:
+        raise RuntimeError("speculative() is already active")
+    _unsettled = []
+    try:
+        yield _unsettled
+    finally:
+        _unsettled = None
 
 
 def _run_bases(reset: torch.Tensor, axis: int):
@@ -78,6 +110,11 @@ def make_propagate(fg: torch.Tensor, connectivity: int):
 
 
 def fixed_point(propagate, labels: torch.Tensor, max_iters: int):
+    if _unsettled is not None and max_iters > SPECULATIVE_ITERS:
+        for _ in range(SPECULATIVE_ITERS):
+            prev, labels = labels, propagate(labels)
+        _unsettled.append(torch.any(labels != prev))
+        return labels
     for _ in range(max_iters):
         new = propagate(labels)
         changed = bool(torch.any(new != labels))
@@ -109,8 +146,7 @@ def component_sizes(labels: torch.Tensor):
     flat = labels.reshape(-1, HW)
     B = flat.shape[0]
     offs = torch.arange(B, device=labels.device)[:, None] * (HW + 1)
-    counts = torch.bincount((flat + offs).reshape(-1),
-                            minlength=B * (HW + 1)).reshape(B, HW + 1)
+    counts = bin_counts(flat + offs, B * (HW + 1)).reshape(B, HW + 1)
     best = torch.argmax(counts[:, 1:], dim=1) + 1
     size = counts.gather(1, best[:, None])[:, 0]
     return best.reshape(lead), size.reshape(lead)

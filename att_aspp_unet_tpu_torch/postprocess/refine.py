@@ -1,9 +1,13 @@
-"""Mask refinement (``refine_mask`` of the reference): drop components below
-max(20 px, 0.15 % of the image), keep the largest, 7x7-ellipse close, fill
-holes — batched over frames.  Counterpart of
-``att_aspp_unet_tpu/postprocess/refine.py``; the JAX engine's bucket-padded
-refine (a compile-reuse measure on the TPU) is replaced by refining at the true size,
-which gives the same masks."""
+"""Mask refinement and the ROI path's postprocess.  Counterpart of
+``att_aspp_unet_tpu/postprocess/refine.py``.
+
+- ``refine_mask`` of the reference: drop components below max(20 px, 0.15 %
+  of the image), keep the largest, 7x7-ellipse close, fill holes — batched
+  over frames.  The JAX engine's bucket-padded refine (a compile-reuse measure
+  on the TPU) is replaced by refining at the true size, which gives the same
+  masks.
+- ``postprocess_roi_stack``: threshold 0.05, the max-area frame, one 3x3
+  dilation, its largest 8-connected component, zeros elsewhere."""
 
 from __future__ import annotations
 
@@ -11,7 +15,8 @@ import numpy as np
 import torch
 
 from .cc import largest_component
-from .morphology import binary_closing, fill_holes, structuring_ellipse
+from .morphology import (binary_closing, binary_dilation, fill_holes,
+                         structuring_ellipse)
 
 
 def _refine_core(masks, min_area: int, close_kernel: int):
@@ -46,3 +51,19 @@ def refine_mask_true_size(masks: torch.Tensor, min_area_px: int,
     H, W = masks.shape[-2], masks.shape[-1]
     return _refine_core(masks, min_area_f32(H, W, min_area_px, min_area_frac),
                         close_kernel)
+
+
+def postprocess_roi_stack(prob: torch.Tensor,
+                          threshold: float = 0.05) -> torch.Tensor:
+    """ROI-path postprocess of an (N, H, W) probability stack -> (N, H, W)
+    uint8 mask stack that is zero everywhere except the max-area frame (the
+    first one on ties); an all-empty stack gives all zeros."""
+    binary = (prob > float(np.float32(threshold))).to(torch.uint8)
+    areas = binary.sum(dim=(-2, -1), dtype=torch.long)
+    frame_idx = torch.argmax(areas)
+    frame = binary.index_select(0, frame_idx[None])[0]
+    big = largest_component(binary_dilation(frame, iterations=1),
+                            connectivity=8)
+    out = torch.zeros_like(binary)
+    out.index_copy_(0, frame_idx[None], big[None])
+    return out

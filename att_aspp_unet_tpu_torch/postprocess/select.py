@@ -1,10 +1,14 @@
-"""Reference-parity frame selection: top-K by area, winner by traced-contour
-circularity.  Host numpy, a copy of ``select_best_frame_exact`` in
-``att_aspp_unet_tpu/postprocess/select.py``."""
+"""Frame selection.  Counterpart of
+``att_aspp_unet_tpu/postprocess/select.py``: the max-area pick of the ROI
+path (tensors, on the device) and the reference-parity top-K by area with the
+winner by traced-contour circularity (host numpy)."""
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+import torch
 
 from ..measure.contour import circularity_score
 
@@ -20,3 +24,18 @@ def select_best_frame_exact(mask_stack, topk: int = 5) -> int:
     idx = np.argsort(areas)[::-1][:k]
     scores = [circularity_score(ms[i]) for i in idx]
     return int(idx[int(np.argmax(scores))])
+
+
+def select_max_area_frame(masks: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, H, W) -> (mask2d uint8, frame): the first frame with the largest
+    foreground area; frame = -1 and a zero mask when the whole stack is empty
+    (the contract of ``select_fetal_abdomen_mask_and_frame``).  ``frame`` is
+    a 0-d int64 tensor on the masks' device."""
+    fg = masks > 0
+    areas = fg.sum(dim=(-2, -1), dtype=torch.long)
+    idx = torch.argmax(areas)
+    empty = areas[idx] == 0
+    frame = torch.where(empty, torch.full_like(idx, -1), idx)
+    sel = fg.index_select(0, idx[None])[0] & ~empty
+    return sel.to(torch.uint8), frame

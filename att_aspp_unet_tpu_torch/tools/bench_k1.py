@@ -1,7 +1,9 @@
-"""Kernel K1's two paths side by side on the card, per conv pair of the
-base_c 48 model at a 512 input.
+"""Kernel K1's two paths side by side on the card, per conv pair of a model
+(default: base_c 48 at a 512 input, the direct path).
 
     python -m att_aspp_unet_tpu_torch.tools.bench_k1 [--batch 32] [--reps 5]
+    ... bench_k1 --base_c 16 --size 128 --batch 128     # the cascade's scout
+    ... bench_k1 --base_c 48 --size 224 --batch 16      # the ROI path
 
 For each of the eight pairs: the mma.sync path's time, the wgmma path's time
 where it takes the shape, and the largest difference between the two
@@ -19,12 +21,6 @@ import sys
 import torch
 
 from ..ops.kernels import fused_conv as fc
-
-# (name, Cin, Cmid, Cout, H = W)
-PAIRS = [("d1", 1, 48, 48, 512), ("d2", 48, 96, 96, 256),
-         ("d3", 96, 192, 192, 128), ("d4", 192, 384, 384, 64),
-         ("u4", 768, 384, 384, 64), ("u3", 384, 192, 192, 128),
-         ("u2", 192, 96, 96, 256), ("u1", 96, 48, 48, 512)]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -47,6 +43,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--base_c", type=int, default=48)
+    ap.add_argument("--size", type=int, default=512)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: the bench needs one GPU", file=sys.stderr)
@@ -56,11 +54,12 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(f"gpu: {smi}; batch {args.batch}, median of {args.reps}")
+    print(f"gpu: {smi}; base_c {args.base_c} at {args.size}^2, batch "
+          f"{args.batch}, median of {args.reps}")
     print(f"{'pair':<5}{'shape':<24}{'mma.sync ms':>12}{'wgmma ms':>10}"
           f"{'max |diff|':>12}")
     tot = {"mma": 0.0, "best": 0.0}
-    for name, cin, cmid, cout, hw in PAIRS:
+    for name, cin, cmid, cout, hw in fc.model_pairs(args.base_c, args.size):
         def rnd(*shape):
             return torch.randn(*shape, generator=g, device=dev)
 

@@ -41,9 +41,7 @@ def cuda_device():
 
 
 # The eight pair shapes of the base_c 48 model at a 512 input, at N=2.
-MAIN_PATH_PAIRS = [(1, 48, 48, 512), (48, 96, 96, 256), (96, 192, 192, 128),
-                   (192, 384, 384, 64), (768, 384, 384, 64),
-                   (384, 192, 192, 128), (192, 96, 96, 256), (96, 48, 48, 512)]
+MAIN_PATH_PAIRS = [p[1:] for p in tfc.model_pairs(48, 512)]
 
 
 def _pair_args(rng, dev, N, cin, cmid, cout, H, W):
@@ -121,6 +119,33 @@ def test_fused_double_cbr_kernel_edge_shapes(rng, cuda_device, N, cin, cmid,
                                             cout, H, W), wgmma=wgmma)
 
 
+# The serving modes' shapes beyond the direct path: the base_c 16 scout at
+# 128x128 (frames down to 16x16, one tile; narrow pairs whose rows the wgmma
+# path pads to 64) and the base_c 48 model on the 224x224 ROI (28x28 and
+# 56x56 frames, ragged against the 8- and 16-row tiles).
+SCOUT_PAIRS = [(3,) + p[1:] for p in tfc.model_pairs(16, 128)]
+ROI_PAIRS = [(2,) + p[1:] for p in tfc.model_pairs(48, 224)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wgmma", [None, False])
+@pytest.mark.parametrize("N,cin,cmid,cout,hw", SCOUT_PAIRS + ROI_PAIRS)
+def test_fused_double_cbr_serving_shapes(rng, cuda_device, N, cin, cmid, cout,
+                                         hw, wgmma):
+    """The sixteen scout and ROI shapes, on the path the wrapper picks
+    (``wgmma=None``) and on the mma.sync path."""
+    _assert_kernel_matches_plain(_pair_args(rng, cuda_device, N, cin, cmid,
+                                            cout, hw, hw), wgmma=wgmma)
+
+
+@pytest.mark.cuda
+def test_fused_double_cbr_scout_batch_of_128(rng, cuda_device):
+    """The scout's micro-batch of an 840-frame case: N = 128 rides in the
+    grid's z dimension."""
+    _assert_kernel_matches_plain(_pair_args(rng, cuda_device, 128, 32, 16, 16,
+                                            128, 128))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin", [96, 24])
 def test_fused_double_cbr_prepacked_equals_on_the_fly(rng, cuda_device, cin):
@@ -157,6 +182,50 @@ def test_clahe_interp_kernel_bit_exact(rng, cuda_device):
     torch.cuda.synchronize()
     want = tci.clahe_interp_reference(*args)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 562, 744), (64, 128, 128),
+                                   (140, 256, 256)])
+def test_clahe_kernel_bit_exact_on_serving_stacks(rng, cuda_device, shape):
+    """K2 through CLAHE's own tables: the 8 promoted frames of a cascade at
+    native size, and stacks at the scouts' sizes, where a CLAHE tile is
+    16x16 (128 px) or 32x32 pixels (256 px)."""
+    from att_aspp_unet_tpu_torch.ops.clahe import clahe_finish, clahe_tables
+
+    u8 = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)) \
+        .to(cuda_device)
+    blocks, luts, wts = clahe_tables(u8)
+    before = tci.clahe_interp.launches
+    got = tci.clahe_interp(blocks, luts, wts)
+    torch.cuda.synchronize()
+    assert tci.clahe_interp.launches == before + 1
+    want = tci.clahe_interp_reference(blocks, luts, wts)
+    assert torch.equal(got, want)
+    assert torch.equal(clahe_finish(got, shape[1:]),
+                       clahe_finish(want, shape[1:]))
+
+
+@pytest.mark.cuda
+def test_bin_counts_on_the_card_equals_bincount_and_reads_nothing(
+        rng, cuda_device):
+    """``bin_counts`` runs ``torch.histc`` on int64 values there: exact for
+    bin indices beyond 2^24 (an 840-frame CLAHE has 17 million bins), and
+    without a read-back (``torch.bincount`` has two)."""
+    from att_aspp_unet_tpu_torch.ops.image import bin_counts
+
+    n_bins = 840 * 81 * 256
+    idx = torch.from_numpy(rng.integers(0, n_bins, 3_000_000)).to(cuda_device)
+    idx[:1000] = n_bins - 1
+    idx[1000:2000] = 0
+    want = torch.bincount(idx, minlength=n_bins)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = bin_counts(idx, n_bins)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.dtype == torch.int64 and torch.equal(got, want)
 
 
 @pytest.mark.cuda

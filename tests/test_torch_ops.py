@@ -139,3 +139,38 @@ def test_clahe_interp_plain_is_the_xla_blend(rng):
         jnp.asarray(wts), "onehot_bf16"))
     got = clahe_interp_reference(_t(blocks), _t(luts), _t(wts)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [
+    ((7, 10), (16, 23)), ((16, 23), (7, 10)), ((224, 224), (562, 744)),
+    ((562, 744), (224, 224)), ((48, 48), (96, 128)), ((5, 9), (5, 4)),
+    ((3, 3), (8, 8)), ((342, 544), (617, 854)), ((762, 208), (159, 707))])
+def test_resize_nearest_bit_exact(rng, in_hw, out_hw):
+    """Up- and downscales with non-integer ratios: the source pixel is
+    ``floor((i + 0.5) * in / out)`` in f32 (half-pixel centres), which
+    ``F.interpolate(mode="nearest")`` does not take."""
+    x = rng.integers(0, 256, (2,) + in_hw).astype(np.uint8)
+    want = np.asarray(jimage.resize_nearest(jnp.asarray(x), out_hw))
+    got = timage.resize_nearest(_t(x), out_hw)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    xf = x[0].astype(np.float32)
+    np.testing.assert_array_equal(
+        timage.resize_nearest(_t(xf), out_hw).numpy(),
+        np.asarray(jimage.resize_nearest(jnp.asarray(xf), out_hw)))
+
+
+def test_minmax_normalize_u8_takes_the_f32_stack_of_resize_bilinear(rng):
+    """The cascade's low-resolution enhancement feeds ``minmax_normalize_u8``
+    the f32 stack that ``resize_bilinear`` returns.  The two resizes differ
+    by a few f32 ulp, so a value that lands on a rounding boundary may come
+    out one grey level apart: at most 1, on at most 0.5 % of the pixels."""
+    x = _frames(rng, 3, 96, 128)
+    want = np.asarray(jimage.minmax_normalize_u8(jimage.resize_bilinear(
+        jnp.asarray(x).astype(jnp.float32), (32, 32))))
+    lo = timage.resize_bilinear(_t(x).float(), (32, 32))
+    assert lo.dtype == torch.float32
+    got = timage.minmax_normalize_u8(lo)
+    assert got.dtype == torch.uint8
+    diff = np.abs(got.numpy().astype(int) - want.astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 5e-3

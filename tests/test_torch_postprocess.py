@@ -12,6 +12,7 @@ from att_aspp_unet_tpu.measure.ellipse import measure_ac_mm as j_measure
 from att_aspp_unet_tpu.postprocess import cc as jcc
 from att_aspp_unet_tpu.postprocess import morphology as jmorph
 from att_aspp_unet_tpu.postprocess import refine as jrefine
+from att_aspp_unet_tpu.postprocess import select as jselect
 from att_aspp_unet_tpu.postprocess.select import \
     select_best_frame_exact as j_select
 from att_aspp_unet_tpu_torch.infer import engine as tengine
@@ -19,6 +20,7 @@ from att_aspp_unet_tpu_torch.measure.ellipse import measure_ac_mm as t_measure
 from att_aspp_unet_tpu_torch.postprocess import cc as tcc
 from att_aspp_unet_tpu_torch.postprocess import morphology as tmorph
 from att_aspp_unet_tpu_torch.postprocess import refine as trefine
+from att_aspp_unet_tpu_torch.postprocess import select as tselect
 from att_aspp_unet_tpu_torch.postprocess.select import \
     select_best_frame_exact as t_select
 
@@ -125,3 +127,88 @@ def test_select_and_measure_equal_jax(rng):
     two = masks[0] | np.roll(masks[4], 25, axis=1)       # two components
     assert t_measure(two, (0.28, 0.28)) == j_measure(two, (0.28, 0.28))
     assert t_measure(np.zeros((5, 5), np.uint8), (1, 1)) == 0.0
+
+
+@pytest.mark.parametrize("hw", [(40, 48), (41, 47)])
+def test_candidate_rank_areas_closed_only_bit_exact(rng, hw):
+    """``fill_proxy=False``: the scout tier's closed-area key."""
+    m = _blobs(rng, 5, *hw)
+    want = np.asarray(jengine.candidate_rank_areas(jnp.asarray(m), 7,
+                                                   fill_proxy=False))
+    got = tengine.candidate_rank_areas(_t(m), 7, fill_proxy=False).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got <= tengine.candidate_rank_areas(_t(m), 7).numpy()).all()
+
+
+@pytest.mark.parametrize("iterations", [1, 3])
+def test_binary_dilation_iterations_bit_exact(rng, iterations):
+    m = (rng.random((3, 21, 27)) > 0.93).astype(np.uint8)
+    want = np.asarray(jmorph.binary_dilation(
+        jnp.asarray(m), np.ones((3, 3), np.uint8), iterations=iterations))
+    got = tmorph.binary_dilation(_t(m), iterations=iterations).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["blobs", "tie", "empty"])
+def test_postprocess_roi_stack_and_select_max_area_bit_exact(rng, case):
+    """Threshold 0.05, the max-area frame (the first on ties), one 3x3
+    dilation, largest 8-connected component; the empty stack gives zeros and
+    frame -1."""
+    yy, xx = np.mgrid[:45, :57]
+    prob = np.zeros((5, 45, 57), np.float32)
+    if case != "empty":
+        for i, r in enumerate([6, 11, 9, 11, 3]):
+            blob = np.hypot(yy - 20 - i, xx - 25 + 2 * i) < r
+            speck = np.hypot(yy - 40, xx - 50) < 2      # a second component
+            prob[i] = np.where(blob | speck, 0.3, 0.01) \
+                * rng.uniform(0.9, 1.1, (45, 57))
+        if case == "tie":
+            prob[3] = prob[1]
+    want = np.asarray(jrefine.postprocess_roi_stack(jnp.asarray(prob), 0.05))
+    got = trefine.postprocess_roi_stack(_t(prob), 0.05)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    jsel, jframe = jselect.select_max_area_frame(jnp.asarray(want))
+    sel, frame = tselect.select_max_area_frame(got)
+    assert int(frame) == int(jframe) == (-1 if case == "empty" else 1)
+    np.testing.assert_array_equal(sel.numpy(), np.asarray(jsel))
+    assert sel.dtype == torch.uint8
+    # values above 1 count as foreground and come back as 1
+    sel3, f3 = tselect.select_max_area_frame(got * 3)
+    assert int(f3) == int(frame) and int(sel3.max()) == (case != "empty")
+
+
+def test_speculative_fixed_points_settle_or_record_it(rng):
+    """Inside ``cc.speculative()`` the loops run a fixed number of iterations
+    and read nothing back: clean rings and disks settle (records unset,
+    results equal the exact loops'); speckled masks, whose labels need about
+    ten passes, leave the labelling's record set."""
+    yy, xx = np.mgrid[:37, :45]
+    r = np.hypot(yy - 18, xx - 22)
+    clean = np.stack([(r > 6) & (r < 12), r < 9,
+                      ((r > 10) & (r < 15)) | (r < 3)]).astype(np.uint8)
+    want_l = tcc.largest_component(_t(clean), 8, min_area=5)
+    want_f = tmorph.fill_holes(_t(clean))
+    with tcc.speculative() as unsettled:
+        got_l = tcc.largest_component(_t(clean), 8, min_area=5)
+        got_f = tmorph.fill_holes(_t(clean))
+    assert len(unsettled) == 2 and not any(bool(u) for u in unsettled)
+    assert torch.equal(got_l, want_l) and torch.equal(got_f, want_f)
+
+    speckled = _blobs(rng, 3, 37, 45)
+    want = tcc.label_components(_t(speckled), 8)
+    with tcc.speculative() as unsettled:
+        got = tcc.label_components(_t(speckled), 8)
+    assert bool(unsettled[0]) and not torch.equal(got, want)
+    with pytest.raises(RuntimeError):
+        with tcc.speculative():
+            with tcc.speculative():
+                pass
+    assert tcc._unsettled is None
+
+
+def test_bin_counts_equals_bincount(rng):
+    from att_aspp_unet_tpu_torch.ops.image import bin_counts
+    idx = rng.integers(0, 50, (7, 31))
+    np.testing.assert_array_equal(bin_counts(_t(idx), 64).numpy(),
+                                  np.bincount(idx.ravel(), minlength=64))
