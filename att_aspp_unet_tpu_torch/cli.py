@@ -9,12 +9,19 @@ reference predict CLI.
 
 ``python -m att_aspp_unet_tpu_torch.cli infer-container`` runs the
 Grand-Challenge container contract on one case (``MODEL_TAG`` and ``CASE_ID``
-of the environment override ``--model-tag`` and ``--case-id``).
+of the environment override ``--model-tag`` and ``--case-id``).  The default
+model is ``baseline``, the nnU-Net-style PlainConvUNet: its architecture
+comes from ``--plans`` / ``--dataset-json`` (nnU-Net's ``plans.json`` and
+``dataset.json``), its weights from an nnU-Net ``.pth`` / ``.pt`` checkpoint
+or the JAX package's flat ``.npz``; without ``--weights`` it runs on the
+initialisation of seed 0, to exercise the contract.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 import sys
 from pathlib import Path
 
@@ -26,11 +33,36 @@ def _load_npz(path) -> dict:
 
     weights = Path(path)
     if weights.suffix != ".npz":
-        raise SystemExit(f"--weights {weights}: this port reads flat-npz "
-                         "archives only (.pt import is not ported yet)")
+        raise SystemExit(f"--weights {weights}: the att_aspp model reads "
+                         "flat-npz archives only (.pt import of the "
+                         "reference's checkpoints is ROADMAP Queue A item 7)")
     if not weights.exists():
         raise SystemExit(f"weights not found: {weights}")
     return load_npz_variables(weights)
+
+
+def _load_baseline(weights, cfg: Config):
+    """The baseline's PlainConvUNet on the CPU: from an nnU-Net checkpoint
+    (``.pth`` / ``.pt``), from the JAX package's flat ``.npz``, or, without
+    weights, from the initialisation of seed 0."""
+    from .models.plain_unet import PlainConvUNet
+
+    if weights is None:
+        print("[warn] no --weights given: using random init (smoke mode)")
+        return PlainConvUNet.from_config(cfg.plain_unet, seed=0)
+    path = Path(weights)
+    if not path.exists():
+        raise SystemExit(f"weights not found: {path}")
+    if path.suffix in (".pth", ".pt"):
+        from .utils.nnunet_import import load_nnunet_checkpoint
+        return load_nnunet_checkpoint(path, cfg.plain_unet)
+    if path.suffix == ".npz":
+        from .utils.convert import jax_plain_unet_to_torch
+        from .utils.npz_weights import load_npz_variables
+        return jax_plain_unet_to_torch(load_npz_variables(path),
+                                       cfg.plain_unet)
+    raise SystemExit(f"--weights {path}: expected an nnU-Net .pth / .pt "
+                     "checkpoint or a flat .npz archive")
 
 
 def cmd_predict(args) -> int:
@@ -76,7 +108,21 @@ def cmd_infer_container(args) -> int:
                  container=ContainerConfig(
                      input_path=args.input, output_path=args.output,
                      model_tag=args.model_tag, case_id=args.case_id))
-    return run_from_env(cfg, _load_npz(args.weights), device=args.device,
+    if args.plans:
+        from .utils.nnunet_import import load_plans_config
+        cfg = dataclasses.replace(cfg, plain_unet=load_plans_config(
+            Path(args.plans), dataset_json=(Path(args.dataset_json)
+                                            if args.dataset_json else None),
+            base=cfg.plain_unet))
+    # the weights are read for the model that will serve, which MODEL_TAG
+    # of the environment may choose over --model-tag
+    if os.getenv("MODEL_TAG", args.model_tag) == "baseline":
+        model = _load_baseline(args.weights, cfg)
+    elif args.weights is None:
+        raise SystemExit("the att_aspp model needs --weights (a flat .npz)")
+    else:
+        model = _load_npz(args.weights)
+    return run_from_env(cfg, model, device=args.device,
                         save_probabilities=not args.no_save_probabilities,
                         debug_frames=not args.no_debug_frames)
 
@@ -137,10 +183,19 @@ def build_parser() -> argparse.ArgumentParser:
     ic.add_argument("--model-tag", default="baseline",
                     choices=["baseline", "att_aspp"])
     ic.add_argument("--case-id", default="output")
-    ic.add_argument("--weights", required=True)
-    ic.add_argument("--base_c", type=int, default=48)
+    ic.add_argument("--weights",
+                    help="baseline: nnU-Net .pth / .pt checkpoint or flat "
+                         ".npz (default: the initialisation of seed 0); "
+                         "att_aspp: "
+                         "flat .npz (required)")
+    ic.add_argument("--plans", help="nnU-Net plans.json for the baseline "
+                    "model architecture")
+    ic.add_argument("--dataset-json", help="nnU-Net dataset.json "
+                    "(num_classes / in_channels)")
+    ic.add_argument("--base_c", type=int, default=48,
+                    help="width of the att_aspp model")
     ic.add_argument("--no-save-probabilities", action="store_true",
-                    help="do not dump the ROI probability stack to "
+                    help="do not dump the probability stack to "
                          "output/probabilities/<sweep>_prob.npy")
     ic.add_argument("--no-debug-frames", action="store_true",
                     help="do not write three frames as raw and enhanced "

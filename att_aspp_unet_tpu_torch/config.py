@@ -1,6 +1,6 @@
-"""Configuration of the serving paths (direct, cascade, bulk, ROI container):
-the fields of ``att_aspp_unet_tpu/config.py`` that these paths read, with the
-same names and defaults."""
+"""Configuration of the serving paths (direct, cascade, bulk, ROI container,
+nnU-Net baseline): the fields of ``att_aspp_unet_tpu/config.py`` that these
+paths read, with the same names and defaults."""
 
 from __future__ import annotations
 
@@ -27,6 +27,30 @@ class ModelConfig:
     base_c: int = 48
     aspp_rates: Tuple[int, ...] = (6, 12, 18)
     compute_dtype: str = "bfloat16"   # "float32" for reference-precision runs
+
+
+@dataclass(frozen=True)
+class PlainUNetConfig:
+    """nnU-Net-style PlainConvUNet of the baseline path: the plan "2d" of
+    ``resources/nnUNet_results/.../plans.json`` (7 stages, base 32 features
+    capped at 512, 2 convs per stage, patch 448 x 576), predicted with
+    Gaussian-weighted half-overlapping tiles and mirror TTA.  The JAX
+    package's TPU-only ``conv_lowering`` has no counterpart here."""
+
+    in_channels: int = 1
+    num_classes: int = 3             # background / optimal / suboptimal
+    base_c: int = 32
+    max_c: int = 512
+    n_stages: int = 7
+    conv_per_stage: int = 2
+    patch_size: Tuple[int, int] = (448, 576)
+    tile_step: float = 0.5
+    use_gaussian: bool = True
+    use_mirroring: bool = True
+    mirror_batch: bool = True        # the 4 mirror views as one forward
+    tile_batch: int = 32             # patch tiles per forward micro-batch
+    compute_dtype: str = "bfloat16"  # "float32" for reference-precision runs
+    param_dtype: str = "float32"     # InstanceNorm's affine parameters
 
 
 @dataclass(frozen=True)
@@ -91,5 +115,6 @@ class ContainerConfig:
 class Config:
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    plain_unet: PlainUNetConfig = field(default_factory=PlainUNetConfig)
     predict: PredictConfig = field(default_factory=PredictConfig)
     container: ContainerConfig = field(default_factory=ContainerConfig)

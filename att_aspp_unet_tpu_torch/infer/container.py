@@ -6,12 +6,13 @@
           output volume
 - output: ``<output>/images/fetal-abdomen-segmentation/<case>.mha`` and
           ``<output>/fetal-abdomen-frame-number.json``
+- ``baseline`` (the default): the nnU-Net-style PlainConvUNet over
+  sliding-window tiles at native resolution, the 3-D largest component of
+  each class, and the reference's class-1-then-class-2 frame ladder;
+  ``att_aspp``: the ROI path on 128 subsampled frames;
 - the selected-frame mask is nearest-neighbour resized back to the native
   (H, W) before writing; optionally the probability stack is dumped and three
   debug frames are written as PNGs.
-
-Only ``att_aspp`` is served; the nnU-Net-style ``baseline`` model is not part
-of this package yet and asking for it raises.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import dataclasses
 import os
 from glob import glob
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,13 +29,36 @@ import torch
 from ..config import Config
 from ..io import read_volume, write_gray_png, write_json
 from ..preprocess import enhance_frames
-from .engine import AttAsppEngine, resize_mask_to, select_mask_and_frame
+from .engine import (AttAsppEngine, BaselineEngine, resize_mask_to,
+                     select_mask_and_frame)
 from .outputs import write_segmentation_output
 
 
 def get_image_file_path(location: Path):
     return glob(str(Path(location) / "*.tiff")) + \
         glob(str(Path(location) / "*.mha"))
+
+
+def select_labeled_mask_and_frame(seg) -> Tuple[np.ndarray, int]:
+    """Class-aware max-area frame pick of the baseline path, the reference's
+    sequential if/elif ladder: per frame, the class-1 area is checked first
+    and wins the frame if it beats the running best, even when class 2 of
+    the same frame is larger; class 2 is consulted only otherwise.  The
+    winning frame's labels are binarised; an all-empty stack gives
+    (zeros, -1).  Only the per-frame areas and the chosen frame cross to the
+    host."""
+    seg = torch.as_tensor(seg)
+    areas = torch.stack([(seg == lab).sum(dim=(1, 2)) for lab in (1, 2)])
+    a1, a2 = areas.cpu().numpy()
+    largest, frame = 0, -1
+    for f in range(seg.shape[0]):
+        if a1[f] > largest:
+            largest, frame = int(a1[f]), f
+        elif a2[f] > largest:
+            largest, frame = int(a2[f]), f
+    if frame < 0:
+        return np.zeros(tuple(seg.shape[1:]), np.uint8), -1
+    return (seg[frame] > 0).to(torch.uint8).cpu().numpy(), frame
 
 
 def _dump_debug_frames(cfg: Config, sweep: np.ndarray, dump_dir: Path,
@@ -57,16 +81,16 @@ def _dump_debug_frames(cfg: Config, sweep: np.ndarray, dump_dir: Path,
         write_gray_png(dump_dir / f"frame{i:03d}_enh.png", enh)
 
 
-def run(cfg: Config, variables: dict, case_id: Optional[str] = None,
+def run(cfg: Config, variables, case_id: Optional[str] = None,
         save_probabilities: bool = True, debug_frames: bool = True,
         device="cuda", log=print) -> int:
-    """Process the single case in ``cfg.container.input_path``."""
+    """Process the single case in ``cfg.container.input_path``.
+    ``variables``: the JAX package's variables tree as numpy for either
+    model, or the port's ``PlainConvUNet`` for ``baseline``."""
     ccfg = cfg.container
-    if ccfg.model_tag != "att_aspp":
-        raise NotImplementedError(
-            f"MODEL_TAG={ccfg.model_tag!r}: only 'att_aspp' is served by this "
-            "package; the nnU-Net-style baseline model (PlainConvUNet with "
-            "sliding-window inference) is ROADMAP Queue A item 4")
+    if ccfg.model_tag not in ("baseline", "att_aspp"):
+        raise ValueError(f"MODEL_TAG={ccfg.model_tag!r}: expected 'baseline' "
+                         "or 'att_aspp'")
     input_path = Path(ccfg.input_path)
     output_path = Path(ccfg.output_path)
     case_id = case_id or ccfg.case_id
@@ -84,28 +108,35 @@ def run(cfg: Config, variables: dict, case_id: Optional[str] = None,
         raise ValueError(f"expected 3-D sweep, got {sweep.shape}")
     n_frames, ref_h, ref_w = sweep.shape
 
-    engine = AttAsppEngine(cfg, variables, device=device)
+    baseline = ccfg.model_tag == "baseline"
+    engine = (BaselineEngine if baseline else AttAsppEngine)(
+        cfg, variables, device=device)
     if debug_frames:
         _dump_debug_frames(cfg, sweep, output_path / "images", engine.device)
 
     # the probability stack, its postprocess and the frame pick stay on the
     # device; only the selected mask (and, when dumping, the stack) crosses
     # to the host
-    probs = engine.predict_roi(sweep)
+    probs = engine.predict(sweep) if baseline else engine.predict_roi(sweep)
     if save_probabilities:
         # relative to the working directory, as the reference does
         prob_dir = Path("output/probabilities")
         prob_dir.mkdir(parents=True, exist_ok=True)
         np.save(prob_dir / f"{sweep_path.stem}_prob.npy", probs.cpu().numpy())
-    mask2d, sub_frame = select_mask_and_frame(engine.postprocess_roi(probs))
-    if sub_frame >= 0:
-        # map the subsampled index back to the original frame axis
-        idxs = np.linspace(0, n_frames - 1,
-                           min(cfg.predict.subsample_frames, n_frames)
-                           ).astype(int)
-        frame = int(idxs[sub_frame])
+    if baseline:
+        mask2d, frame = select_labeled_mask_and_frame(
+            engine.postprocess(probs))
     else:
-        frame = -1
+        mask2d, sub_frame = select_mask_and_frame(engine.postprocess_roi(probs))
+        if sub_frame >= 0:
+            # map the subsampled index back to the original frame axis
+            idxs = np.linspace(0, n_frames - 1,
+                               min(cfg.predict.subsample_frames, n_frames)
+                               ).astype(int)
+            frame = int(idxs[sub_frame])
+        else:
+            frame = -1
+    del probs
 
     mask2d = resize_mask_to(mask2d, (ref_h, ref_w))
     write_segmentation_output(

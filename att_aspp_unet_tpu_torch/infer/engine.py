@@ -13,7 +13,10 @@ Counterpart of ``att_aspp_unet_tpu/infer/engine.py`` (``AttAsppEngine``):
 - bulk (``predict_bulk``): S same-shape sweeps through one cascade, the
   promoted frames of all sweeps sharing tier-2 micro-batches and one refine;
 - ROI (``predict_roi``): the container path — 128 linspace-subsampled frames,
-  a 224 x 224 intensity-centroid crop, forward without TTA, paste back.
+  a 224 x 224 intensity-centroid crop, forward without TTA, paste back;
+- baseline (:class:`BaselineEngine`): the container's default model, an
+  nnU-Net-style PlainConvUNet over Gaussian-weighted sliding-window tiles
+  with mirror TTA, then a 3-D largest-component postprocess per class.
 
 The device half runs eagerly in PyTorch; the two hand-written kernels run
 inside it (CLAHE's K2 in every enhancement, K1 for every conv pair of every
@@ -43,16 +46,20 @@ import torch.nn.functional as F
 from ..config import Config
 from ..device import resolve_device
 from ..measure.ellipse import measure_ac_mm
+from ..models.plain_unet import PlainConvUNet
+from ..models.sliding_window import sliding_window_predict
 from ..ops.image import gaussian_blur, resize_bilinear, resize_nearest
 from ..postprocess import cc
 from ..postprocess.morphology import (binary_closing, fill_holes,
                                       structuring_ellipse)
-from ..postprocess.refine import postprocess_roi_stack, refine_mask_true_size
+from ..postprocess.refine import (postprocess_roi_stack,
+                                  postprocess_softmax_stack,
+                                  refine_mask_true_size)
 from ..postprocess.select import (select_best_frame_exact,
                                   select_max_area_frame)
 from ..preprocess.enhance import enhance_frames, preprocess_sweep
 from ..preprocess.roi import crop_roi, paste_roi_probs
-from ..utils.convert import jax_variables_to_torch
+from ..utils.convert import jax_plain_unet_to_torch, jax_variables_to_torch
 from ..utils.npz_weights import load_npz_variables
 
 
@@ -634,6 +641,61 @@ class AttAsppEngine:
     @torch.no_grad()
     def postprocess_roi(self, probs: torch.Tensor) -> torch.Tensor:
         return postprocess_roi_stack(probs, 0.05)
+
+
+class BaselineEngine:
+    """PlainConvUNet + sliding-window tiled inference (the nnU-Net-style
+    path) on one device.
+
+    ``model`` is the port's :class:`PlainConvUNet` (moved to ``device``) or
+    the JAX package's PlainConvUNet params tree as numpy, converted with
+    ``jax_plain_unet_to_torch``.  ``stage_times`` as in
+    :class:`AttAsppEngine` ("preprocess", "forward", "postprocess")."""
+
+    def __init__(self, cfg: Config, model, device="cuda",
+                 stage_times: Optional[Dict[str, float]] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if not isinstance(model, PlainConvUNet):
+            model = jax_plain_unet_to_torch(model, cfg.plain_unet)
+        # on a card the conv kernels channel-last too, so that cuDNN keeps
+        # every activation channel-last instead of converting around each
+        # conv (the 1-channel input alone does not decide the layout)
+        fmt = (torch.channels_last if self.device.type == "cuda"
+               else torch.preserve_format)
+        self.model = model.to(self.device, memory_format=fmt).eval()
+        self.stage_times = stage_times
+        self._t = 0.0
+
+    _mark = AttAsppEngine._mark
+
+    @torch.no_grad()
+    def predict(self, sweep) -> torch.Tensor:
+        """Raw (N, H, W) sweep -> (C, N, H, W) f32 softmax probabilities on
+        the device: enhancement at native resolution (one CLAHE over the
+        whole stack), then the tiled, mirrored forward."""
+        p, pu = self.cfg.preprocess, self.cfg.plain_unet
+        self._mark()
+        if not isinstance(sweep, torch.Tensor):
+            sweep = torch.as_tensor(np.asarray(sweep))
+        x = preprocess_sweep(sweep.to(self.device), None, p.clahe_clip,
+                             p.clahe_grid, p.median_kernel)
+        self._mark("preprocess")
+        probs = sliding_window_predict(
+            self.model, x, tuple(pu.patch_size), pu.tile_step,
+            pu.use_gaussian, pu.use_mirroring, pu.tile_batch, pu.mirror_batch)
+        probs = probs.transpose(0, 1).contiguous()
+        self._mark("forward")
+        return probs
+
+    @torch.no_grad()
+    def postprocess(self, probabilities) -> torch.Tensor:
+        """(C, N, H, W) probabilities -> (N, H, W) uint8 labels: threshold
+        0.5 and the largest 3-D component of classes 1 and 2."""
+        out = postprocess_softmax_stack(
+            torch.as_tensor(probabilities).to(self.device), 0.5)
+        self._mark("postprocess")
+        return out
 
 
 def _read_json_or_empty(path: Path) -> dict:

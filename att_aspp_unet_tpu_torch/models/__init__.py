@@ -1,3 +1,4 @@
-"""The segmentation model."""
+"""The segmentation models."""
 
 from .att_aspp_unet import AttentionASPPUNet  # noqa: F401
+from .plain_unet import PlainConvUNet  # noqa: F401

@@ -145,11 +145,12 @@ def resize_nearest(frames: torch.Tensor, out_hw: Tuple[int, int]
 
 def bin_counts(idx: torch.Tensor, n_bins: int) -> torch.Tensor:
     """Occurrences of each value 0..n_bins-1 in the int64 tensor ``idx``
-    (``torch.bincount(idx, minlength=n_bins)`` for values in range).  On a
-    card ``torch.bincount`` reads the tensor's extremes back to size its
-    output; ``torch.histc`` with given bounds runs the same histogram kernel
-    on integers without reading anything, so the host does not wait."""
+    (``torch.bincount(idx, minlength=n_bins)``); negative values are not
+    counted.  On a card ``torch.bincount`` reads the tensor's extremes back
+    to size its output; ``torch.histc`` with given bounds runs the same
+    histogram kernel on integers without reading anything, so the host does
+    not wait, and ignores values below its range."""
     flat = idx.reshape(-1)
     if flat.is_cuda:
         return torch.histc(flat, bins=n_bins, min=0, max=n_bins)
-    return torch.bincount(flat, minlength=n_bins)
+    return torch.bincount(flat[flat >= 0], minlength=n_bins)

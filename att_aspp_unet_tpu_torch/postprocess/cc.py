@@ -1,15 +1,21 @@
 """Connected-component labeling by fixed-point min-label propagation.
 
-Counterpart of ``att_aspp_unet_tpu/postprocess/cc.py`` (2-D, the encoded
-segmented-scan lowering), with the same iteration structure and cap so the
-labels are identical:
+Counterpart of ``att_aspp_unet_tpu/postprocess/cc.py``, with the same
+iteration structure and cap so the labels are identical:
 
-- every foreground pixel starts with its flat index + 1;
-- one iteration takes the min over the diagonal neighbours (8-connectivity;
-  out-of-image = +inf), then a segmented min along every foreground run of
-  each axis, forward and backward.  A segmented min-scan is a cumulative max
-  of ``run_index * L - value`` (the run index is non-decreasing along the
-  scan, so the max stays in the current run);
+- ``ndim=2`` labels each (H, W) plane of a batch, ``ndim=3`` the whole
+  (N, H, W) stack as one volume (the baseline's 6-connected 3-D components);
+- every foreground pixel starts with its flat index + 1 (over the plane, or
+  over the whole stack);
+- one iteration takes the min over the diagonal neighbours (8- or
+  26-connectivity; none for 4 and 6; out-of-image = +inf), then, axis by
+  axis, the min over every foreground run along the axis.  The JAX package
+  computes that min as a forward and a backward segmented min-scan (after
+  the forward scan each pixel holds the min of its run's prefix, after the
+  backward one the min of the whole run); here the runs are numbered once
+  per labelling, and each axis of an iteration is one scatter-min of the
+  labels into a table indexed by run and one gather back: the same labels
+  after every iteration, without the scans;
 - iterations stop when nothing changes or at ``max_iters``.
 
 Deciding that nothing changed needs a flag from the device in every
@@ -55,56 +61,56 @@ def speculative():
         _unsettled = None
 
 
-def _run_bases(reset: torch.Tensor, axis: int):
-    fwd = torch.cumsum(reset.long(), dim=axis)
-    rev = torch.flip(torch.cumsum(torch.flip(reset, (axis,)).long(), dim=axis),
-                     (axis,))
-    return fwd, rev
+def _run_ids(fg: torch.Tensor, axis: int) -> torch.Tensor:
+    """The run of each pixel along ``axis``, numbered 0, 1, ... over the
+    whole tensor: the pixels of a foreground run share one number, every
+    background pixel has one of its own (no entry of the run table is then
+    hit by all the background).  int64, as scatter indices."""
+    x = fg.movedim(axis, -1)
+    joined = torch.zeros(x.shape, dtype=torch.bool, device=fg.device)
+    joined[..., 1:] = x[..., 1:] & x[..., :-1]     # continues the run before
+    ids = torch.cumsum(~joined.reshape(-1), 0).sub_(1).reshape(x.shape)
+    return ids.movedim(-1, axis).contiguous()
 
 
-def _cummax(x: torch.Tensor, axis: int, reverse: bool) -> torch.Tensor:
-    if reverse:
-        return torch.flip(torch.cummax(torch.flip(x, (axis,)), dim=axis)[0],
-                          (axis,))
-    return torch.cummax(x, dim=axis)[0]
-
-
-def _diag_offsets(connectivity: int):
-    """Neighbour offsets not covered by the axis scans (2-D)."""
-    if connectivity == 4:
+def _diag_offsets(ndim: int, connectivity: int):
+    """Neighbour offsets not covered by the runs along the axes: none for
+    4- (2-D) and 6-connectivity (3-D), else those with two or more non-zero
+    deltas."""
+    if (ndim, connectivity) in ((2, 4), (3, 6)):
         return []
-    return [d for d in itertools.product((-1, 0, 1), repeat=2)
-            if sum(v != 0 for v in d) == 2]
+    return [d for d in itertools.product((-1, 0, 1), repeat=ndim)
+            if sum(v != 0 for v in d) >= 2]
 
 
-def _neighbor_min(labels: torch.Tensor, offsets) -> torch.Tensor:
+def _neighbor_min(labels: torch.Tensor, offsets, ndim: int) -> torch.Tensor:
     if not offsets:
         return labels
-    H, W = labels.shape[-2], labels.shape[-1]
-    lp = torch.nn.functional.pad(labels, (1, 1, 1, 1), value=INF)
+    spatial = labels.shape[-ndim:]
+    lp = torch.nn.functional.pad(labels, (1, 1) * ndim, value=INF)
     m = labels
-    for dy, dx in offsets:
+    for d in offsets:
         # the neighbour at p + delta contributes to p
-        m = torch.minimum(m, lp[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W])
+        m = torch.minimum(m, lp[(...,) + tuple(
+            slice(1 + v, 1 + v + n) for v, n in zip(d, spatial))])
     return m
 
 
-def make_propagate(fg: torch.Tensor, connectivity: int):
-    """One propagation step over the foreground ``fg`` (..., H, W)."""
-    offsets = _diag_offsets(connectivity)
-    reset = ~fg
-    n_vals = math.prod(fg.shape[-2:]) + 2
-    L = 1 << max(1, (n_vals - 1).bit_length())
-    bases = {axis: _run_bases(reset, axis) for axis in (-2, -1)}
+def make_propagate(fg: torch.Tensor, connectivity: int, ndim: int = 2):
+    """One propagation step over the foreground ``fg`` (..., *spatial) with
+    ``ndim`` spatial axes.  Background labels come out +inf."""
+    offsets = _diag_offsets(ndim, connectivity)
+    runs = [_run_ids(fg, axis) for axis in range(-ndim, 0)]
+    table = torch.empty(fg.numel(), dtype=torch.long, device=fg.device)
     inf = torch.full((), INF, dtype=torch.long, device=fg.device)
 
     def propagate(labels):
-        m = torch.where(fg, _neighbor_min(labels, offsets), inf)
-        for axis in (-2, -1):
-            bf, br = bases[axis]
-            m = bf * L - _cummax(bf * L - m, axis, reverse=False)
-            m = br * L - _cummax(br * L - m, axis, reverse=True)
-        return torch.where(fg, m, inf)
+        m = torch.where(fg, _neighbor_min(labels, offsets, ndim), inf)
+        for ids in runs:
+            table.fill_(INF).scatter_reduce_(0, ids.reshape(-1),
+                                             m.reshape(-1), reduce="amin")
+            m = table.take(ids)
+        return m
 
     return propagate
 
@@ -125,39 +131,49 @@ def fixed_point(propagate, labels: torch.Tensor, max_iters: int):
 
 
 def label_components(mask: torch.Tensor, connectivity: int = 8,
-                     max_iters: int = 128) -> torch.Tensor:
-    """Components within each (H, W) plane; int64 labels, 0 = background,
+                     max_iters: int = 128, ndim: int = 2) -> torch.Tensor:
+    """Components over the last ``ndim`` axes (2: each (H, W) plane, leading
+    axes batched; 3: the (N, H, W) volume); int64 labels, 0 = background,
     each component carries the flat index + 1 of its first pixel."""
     fg = mask.bool()
-    H, W = fg.shape[-2], fg.shape[-1]
-    flat = torch.arange(1, H * W + 1, device=fg.device).reshape(H, W)
+    spatial = fg.shape[-ndim:]
+    flat = torch.arange(1, math.prod(spatial) + 1,
+                        device=fg.device).reshape(spatial)
     labels = torch.where(fg, flat.expand(fg.shape),
                          torch.full((), INF, device=fg.device))
-    labels = fixed_point(make_propagate(fg, connectivity), labels, max_iters)
+    del flat
+    labels = fixed_point(make_propagate(fg, connectivity, ndim), labels,
+                         max_iters)
     return torch.where(fg, labels, torch.zeros((), dtype=labels.dtype,
                                                device=fg.device))
 
 
-def component_sizes(labels: torch.Tensor):
-    """(label, size) of the largest component of each (H, W) plane; ties go
-    to the smaller label, as the JAX package's sort-and-run count does."""
-    lead = labels.shape[:-2]
-    HW = labels.shape[-2] * labels.shape[-1]
-    flat = labels.reshape(-1, HW)
+def component_sizes(labels: torch.Tensor, ndim: int = 2):
+    """(label, size) of the largest component of each labelled plane
+    (``ndim=2``) or volume (``ndim=3``); ties go to the smaller label, as the
+    JAX package's sort-and-run count does."""
+    lead = labels.shape[:-ndim]
+    S = math.prod(labels.shape[-ndim:])
+    flat = labels.reshape(-1, S)
     B = flat.shape[0]
-    offs = torch.arange(B, device=labels.device)[:, None] * (HW + 1)
-    counts = bin_counts(flat + offs, B * (HW + 1)).reshape(B, HW + 1)
+    offs = torch.arange(B, device=labels.device)[:, None] * (S + 1)
+    # the background is not counted (-1 lies outside the bins): every
+    # background pixel would hit the one bin of its plane
+    idx = torch.where(flat > 0, flat + offs, -1)
+    counts = bin_counts(idx, B * (S + 1)).reshape(B, S + 1)
     best = torch.argmax(counts[:, 1:], dim=1) + 1
     size = counts.gather(1, best[:, None])[:, 0]
     return best.reshape(lead), size.reshape(lead)
 
 
 def largest_component(mask: torch.Tensor, connectivity: int = 8,
-                      min_area=0) -> torch.Tensor:
-    """Keep only the largest component of each mask; all-zero if it has
-    fewer than ``min_area`` pixels."""
-    labels = label_components(mask, connectivity)
-    best, size = component_sizes(labels)
-    keep = (labels == best[..., None, None]) & (labels > 0)
-    ok = (size >= max(int(min_area), 1))[..., None, None]
+                      min_area=0, ndim: int = 2) -> torch.Tensor:
+    """Keep only the largest component of each mask (each plane for
+    ``ndim=2``, the volume for ``ndim=3``); all-zero if it has fewer than
+    ``min_area`` pixels."""
+    labels = label_components(mask, connectivity, ndim=ndim)
+    best, size = component_sizes(labels, ndim)
+    expand = (...,) + (None,) * ndim
+    keep = (labels == best[expand]) & (labels > 0)
+    ok = (size >= max(int(min_area), 1))[expand]
     return (keep & ok).to(torch.uint8)

@@ -7,7 +7,10 @@
   on the TPU) is replaced by refining at the true size, which gives the same
   masks.
 - ``postprocess_roi_stack``: threshold 0.05, the max-area frame, one 3x3
-  dilation, its largest 8-connected component, zeros elsewhere."""
+  dilation, its largest 8-connected component, zeros elsewhere.
+- ``postprocess_softmax_stack``: the baseline's (C, N, H, W) softmax stack
+  -> labels: soft threshold, argmax over the classes, the largest
+  6-connected 3-D component of each class."""
 
 from __future__ import annotations
 
@@ -66,4 +69,25 @@ def postprocess_roi_stack(prob: torch.Tensor,
                             connectivity=8)
     out = torch.zeros_like(binary)
     out.index_copy_(0, frame_idx[None], big[None])
+    return out
+
+
+def postprocess_softmax_stack(softmax: torch.Tensor, threshold: float = 0.5,
+                              labels=(1, 2)) -> torch.Tensor:
+    """(C, N, H, W) class probabilities -> (N, H, W) uint8 labels.
+
+    Probabilities below ``threshold`` become 0, each pixel takes the class
+    of its largest remaining value (the first class on ties, so a pixel with
+    nothing left is background), and for each of ``labels`` in order only
+    its largest 6-connected component over the whole (N, H, W) stack is
+    kept."""
+    sm = torch.where(softmax < float(np.float32(threshold)),
+                     torch.zeros((), dtype=softmax.dtype,
+                                 device=softmax.device), softmax)
+    seg = torch.argmax(sm, dim=0).to(torch.uint8)
+    del sm
+    out = torch.zeros_like(seg)
+    for lab in labels:
+        keep = largest_component(seg == lab, connectivity=6, ndim=3)
+        out.masked_fill_(keep.bool(), lab)
     return out

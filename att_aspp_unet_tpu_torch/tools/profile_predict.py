@@ -3,7 +3,8 @@
 
     python -m att_aspp_unet_tpu_torch.tools.profile_predict [--frames 140]
         [--top 10] [--weights resources/synthetic/weights.npz]
-        [--cascade [--scout_weights resources/.../weights.npz] | --roi]
+        [--cascade [--scout_weights resources/.../weights.npz] | --roi
+         | --baseline]
 
 Builds the synthetic sweep (``tools/synthetic.make_sweep``, seed 0, 562x744),
 runs one case to warm up, profiles the next one and prints the device
@@ -11,7 +12,9 @@ operations with the most self time, the device-busy share of the case's wall
 time, and the card's name and power limit.  ``--cascade`` profiles the
 two-tier cascade, by default with the distilled 128-px scout; ``--roi``
 profiles the container's ROI path (``predict_roi`` and its postprocess)
-instead of ``predict_case``.  Needs one CUDA device.
+instead of ``predict_case``; ``--baseline`` the container's default model
+(``BaselineEngine.predict``, its postprocess and the frame ladder) with the
+initialisation of seed 0, the command line's without ``--weights``.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ def main(argv=None) -> int:
         REPO / "resources/synthetic/weights.npz"))
     ap.add_argument("--cascade", action="store_true")
     ap.add_argument("--roi", action="store_true")
+    ap.add_argument("--baseline", action="store_true")
     ap.add_argument("--scout_weights", default=str(
         REPO / "resources/synthetic_scout_noclahe128/weights.npz"))
     args = ap.parse_args(argv)
@@ -59,7 +63,18 @@ def main(argv=None) -> int:
                            device="cuda")
     sweep, _, _ = make_sweep(args.frames, 562, 744, seed=0)
 
+    if args.baseline:
+        from ..infer.container import select_labeled_mask_and_frame
+        from ..infer.engine import BaselineEngine
+        from ..models import PlainConvUNet
+
+        base = BaselineEngine(Config(), PlainConvUNet.from_config(
+            Config().plain_unet, seed=0), device="cuda")
+
     def case(frames):
+        if args.baseline:
+            return select_labeled_mask_and_frame(
+                base.postprocess(base.predict(frames)))
         if args.roi:
             return engine.postprocess_roi(engine.predict_roi(frames)).cpu()
         return engine.predict_case(frames, (0.28, 0.28), thr)
@@ -89,7 +104,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"gpu: {smi}")
-    what = ("predict_roi + postprocess_roi" if args.roi else
+    what = ("BaselineEngine predict + postprocess" if args.baseline else
+            "predict_roi + postprocess_roi" if args.roi else
             "predict_case (cascade)" if args.cascade else "predict_case")
     print(f"{what}, "
           f"{args.frames} frames, warm, profiler on: "

@@ -10,6 +10,12 @@ converted to numpy) and builds the port's :class:`AttentionASPPUNet`:
 - ConvTranspose kernels are pre-flipped spatially (flax applies the reversed
   kernel), so the port's up-conv indexes them forward;
 - the ASPP's dilated kernels go to OIHW for ``F.conv2d``.
+
+``jax_plain_unet_to_torch`` does the same for the baseline's
+``PlainConvUNet``, into the port's nnU-Net-named module: HWIO -> OIHW, the
+transposed convs' kernels flipped into PyTorch's (in, out, kh, kw) layout,
+InstanceNorm scale/bias -> weight/bias (the inverse of the JAX package's
+``utils/nnunet_import.py`` mapping).
 """
 
 from __future__ import annotations
@@ -19,8 +25,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, PlainUNetConfig
 from ..models.att_aspp_unet import AttentionASPPUNet
+from ..models.plain_unet import PlainConvUNet
 from ..ops.kernels.fused_conv import fold_batchnorm, pack_conv_weight
 
 
@@ -86,5 +93,51 @@ def jax_variables_to_torch(variables_np: Dict, cfg: ModelConfig = ModelConfig(),
     model = AttentionASPPUNet(cfg, device=device)
     sd = {k: torch.as_tensor(np.ascontiguousarray(v))
           for k, v in torch_state_dict(variables_np, cfg).items()}
+    model.load_state_dict(sd, strict=True)
+    return model.eval()
+
+
+def plain_unet_state_dict(variables: Dict,
+                          cfg: PlainUNetConfig) -> Dict[str, np.ndarray]:
+    """The port's PlainConvUNet state dict (numpy f32, nnU-Net v2 names) from
+    the JAX model's params."""
+    p = variables["params"]
+    sd: Dict[str, np.ndarray] = {}
+
+    def block(prefix, q):
+        sd[f"{prefix}.conv.weight"] = _np(q["conv"]["kernel"]).transpose(3, 2, 0, 1)
+        sd[f"{prefix}.conv.bias"] = _np(q["conv"]["bias"])
+        sd[f"{prefix}.norm.weight"] = _np(q["norm"]["scale"])
+        sd[f"{prefix}.norm.bias"] = _np(q["norm"]["bias"])
+
+    n = cfg.n_stages
+    for s in range(n):
+        for c in range(cfg.conv_per_stage):
+            block(f"encoder.stages.{s}.0.convs.{c}", p[f"enc{s}_{c}"])
+    for i in range(n - 1):
+        s = n - 2 - i
+        # flax applies the kernel as stored, PyTorch's transposed conv the
+        # spatially flipped one
+        k = _np(p[f"up{s}"]["kernel"])[::-1, ::-1]            # (kh, kw, I, O)
+        sd[f"decoder.transpconvs.{i}.weight"] = k.transpose(2, 3, 0, 1)
+        sd[f"decoder.transpconvs.{i}.bias"] = _np(p[f"up{s}"]["bias"])
+        for c in range(cfg.conv_per_stage):
+            block(f"decoder.stages.{i}.convs.{c}", p[f"dec{s}_{c}"])
+    head = p["seg_head"]
+    sd[f"decoder.seg_layers.{n - 2}.weight"] = \
+        _np(head["kernel"]).transpose(3, 2, 0, 1)
+    sd[f"decoder.seg_layers.{n - 2}.bias"] = _np(head["bias"])
+    return sd
+
+
+def jax_plain_unet_to_torch(variables_np: Dict,
+                            cfg: PlainUNetConfig = PlainUNetConfig()
+                            ) -> PlainConvUNet:
+    """The port's PlainConvUNet on the CPU with the weights of a JAX
+    ``PlainConvUNet`` params tree (nested numpy, or a flat-npz archive read
+    by ``load_npz_variables``)."""
+    model = PlainConvUNet(cfg)
+    sd = {k: torch.from_numpy(np.array(v, np.float32))
+          for k, v in plain_unet_state_dict(variables_np, cfg).items()}
     model.load_state_dict(sd, strict=True)
     return model.eval()

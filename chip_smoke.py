@@ -15,8 +15,9 @@ Phases (any failure exits non-zero and prints no result line):
    of each pair naming the path it took (wgmma or mma.sync); K2
    ``clahe_interp`` through CLAHE's own tables, bit-exact, on the 140 x 562
    x 744 sweep, on the 8, 32 and 128 native frames that the cascade, the bulk
-   path and the container enhance, and on the sweep at 256 x 256 and 128 x
-   128 (a scout's CLAHE: tiles of 32 x 32 and 16 x 16 pixels) — and time
+   path and the container enhance, on the sweep at 256 x 256 and 128 x 128
+   (a scout's CLAHE: tiles of 32 x 32 and 16 x 16 pixels) and on the whole
+   840 x 562 x 744 case (the baseline) — and time
    kernel, plain version and a library yardstick (for K1 cuDNN's
    bf16 convolutions on channel-last and on contiguous tensors; the faster
    sum is ``library_ms``);
@@ -37,11 +38,19 @@ Phases (any failure exits non-zero and prints no result line):
 5. bulk: ``predict_bulk`` on four 140-frame sweeps against four
    ``predict_case`` calls (frames and ACs equal, Dice >= 0.98);
 6. container: ``infer-container`` (``MODEL_TAG=att_aspp``) on the 840-frame
-   case: the output contract, and 12 of its frames again on the CPU.
+   case: the output contract, and 12 of its frames again on the CPU;
+7. baseline: ``infer-container`` with ``MODEL_TAG`` unset (the nnU-Net-style
+   PlainConvUNet of the in-repo ``plans.json`` at full width, seeded
+   initialisation ``BASELINE_SEED``) on the 840-frame case: the output
+   contract; a warm ``BaselineEngine`` on the 140-frame sweep and the
+   840-frame case (frames/s, stage split, the forward's TFLOP/s, peak
+   memory, class shares, 3-D components); card against CPU: the forward on
+   2 frames, the postprocess of the 140-frame softmax stack.  K1 does not
+   run on this path.
 
 Every path is driven with the launch counters at zero and must have launched
-both kernels.  The line before the last is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.
+the kernels it runs.  The line before the last is a JSON object with one
+entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -69,6 +78,13 @@ BASE_C = 48                  # the main model's width
 MAIN_WEIGHTS = "resources/synthetic/weights.npz"
 SCOUT_WEIGHTS = "resources/synthetic_scout_noclahe128/weights.npz"
 CLAHE_SCOUT_WEIGHTS = "resources/synthetic_scout/weights.npz"   # 256 px
+PLAN_DIR = ("resources/nnUNet_results/Dataset300_ACOptimalSuboptimal/"
+            "nnUNetTrainer__nnUNetPlans__2d")
+# seed of the baseline's initialisation (no trained nnU-Net checkpoint is in
+# the repository): the one infer-container uses without --weights, and one
+# that tools/probe_baseline.py shows keeps non-empty 3-D components of both
+# classes on the synthetic sweeps
+BASELINE_SEED = 0
 
 
 # label -> (base_c, input size, frames per launch) of K1's shape sets: the
@@ -227,9 +243,10 @@ def phase_k1(dev):
 def k2_stacks(dev, sweeps):
     """label -> the uint8 stack that a path hands to CLAHE: the whole sweep
     (direct), the 8 promoted frames of a cascade, the 32 of a bulk group of
-    four, the container's 128 subsampled frames of the 840-frame case, and
-    the sweep at the sizes of the scouts (256 px: the scout that was trained
-    with CLAHE; 128 px: tiles of 16 x 16 pixels)."""
+    four, the container's 128 subsampled frames of the 840-frame case, the
+    sweep at the sizes of the scouts (256 px: the scout that was trained
+    with CLAHE; 128 px: tiles of 16 x 16 pixels), and the whole 840-frame
+    case at native size (the baseline)."""
     import numpy as np
     import torch
 
@@ -248,7 +265,8 @@ def k2_stacks(dev, sweeps):
     mid = N_FRAMES // 2
     return {"main": u8(sweeps[0]), "cascade": u8(sweeps[0][mid:mid + 8]),
             "bulk": u8(np.concatenate([sw[mid:mid + 8] for sw in sweeps[:4]])),
-            "roi": u8(case[idxs]), "scout": low(256), "scout128": low(128)}
+            "roi": u8(case[idxs]), "scout": low(256), "scout128": low(128),
+            "baseline": u8(case)}
 
 
 def phase_k2(dev, sweeps):
@@ -309,14 +327,16 @@ def reset_launches():
 
 
 def read_launches(where: str, expect=None):
-    """The counters since :func:`reset_launches`; both kernels must have
-    launched, and exactly ``expect`` = (K1, K2) times where that is given."""
+    """The counters since :func:`reset_launches`; exactly ``expect`` = (K1,
+    K2) launches where that is given, and every kernel the path runs (all of
+    them without ``expect``) must have launched."""
     from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as ci
     from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as fc
 
     got = {"fused_double_cbr": fc.fused_double_cbr.launches,
            "clahe_interp": ci.clahe_interp.launches}
-    if min(got.values()) <= 0:
+    runs = [v for v, e in zip(got.values(), expect or (1, 1)) if e]
+    if not runs or min(runs) <= 0:
         raise AssertionError(f"{where}: a kernel never launched: {got}")
     if expect is not None and tuple(got.values()) != tuple(expect):
         raise AssertionError(f"{where}: launches {got}, the path implies "
@@ -861,6 +881,200 @@ def phase_container(dev, case, abdomen_case, variables, tmp):
     return launches
 
 
+def baseline_config(compute_dtype: str = "bfloat16"):
+    """The port's configuration with the in-repo nnU-Net plan (7 stages,
+    base 32 capped at 512, patch 448 x 576, 3 classes)."""
+    import dataclasses
+
+    from att_aspp_unet_tpu_torch.config import Config
+    from att_aspp_unet_tpu_torch.utils.nnunet_import import load_plans_config
+
+    pu = load_plans_config(REPO / PLAN_DIR / "plans.json",
+                           dataset_json=REPO / PLAN_DIR / "dataset.json")
+    return Config(plain_unet=dataclasses.replace(pu,
+                                                 compute_dtype=compute_dtype))
+
+
+def plain_unet_flops(pu) -> float:
+    """2 x multiply-adds of one PlainConvUNet forward over a patch: the 3x3
+    convs (stride 2 where a stage begins), the 2x2 stride-2 transposed convs
+    and the 1x1 head."""
+    h, w = pu.patch_size
+    feats = [min(pu.base_c * 2 ** s, pu.max_c) for s in range(pu.n_stages)]
+    px = [(h >> s) * (w >> s) for s in range(pu.n_stages)]
+    total, cin = 0.0, pu.in_channels
+    for s, f in enumerate(feats):
+        total += 2 * 9 * (cin + (pu.conv_per_stage - 1) * f) * f * px[s]
+        cin = f
+    for s in range(pu.n_stages - 2, -1, -1):
+        f = feats[s]
+        total += 2 * feats[s + 1] * f * px[s]
+        total += 2 * 9 * (2 * f + (pu.conv_per_stage - 1) * f) * f * px[s]
+    return total + 2 * feats[0] * pu.num_classes * px[0]
+
+
+def phase_baseline(dev, sweep, case, tmp):
+    """The nnU-Net-style baseline, the container's default model, at the
+    full width of the in-repo plan with the seeded initialisation: the
+    ``infer-container`` CLI with ``MODEL_TAG`` unset on the 840-frame case,
+    a warm engine on 140 and 840 frames, card against CPU."""
+    import numpy as np
+    import torch
+
+    from att_aspp_unet_tpu_torch import cli
+    from att_aspp_unet_tpu_torch.infer.container import \
+        select_labeled_mask_and_frame
+    from att_aspp_unet_tpu_torch.infer.engine import BaselineEngine
+    from att_aspp_unet_tpu_torch.io import (MetaImage, read_json, read_mha,
+                                            write_mha)
+    from att_aspp_unet_tpu_torch.models import PlainConvUNet
+    from att_aspp_unet_tpu_torch.models.sliding_window import \
+        compute_tile_starts
+    from att_aspp_unet_tpu_torch.postprocess import cc
+    from att_aspp_unet_tpu_torch.postprocess.refine import \
+        postprocess_softmax_stack
+    from att_aspp_unet_tpu_torch.tools.probe_baseline import (
+        count_iterations, thresholded_labels)
+
+    n = case.shape[0]
+    cfg = baseline_config()
+    pu = cfg.plain_unet
+    src = tmp / "bin/images/stacked-fetal-ultrasound"
+    src.mkdir(parents=True)
+    write_mha(src / "case_840.mha", MetaImage(case, spacing=(0.28,) * 3),
+              compressed=False)
+    os.environ.pop("MODEL_TAG", None)
+    os.environ["CASE_ID"] = "case-840"
+    argv = ["infer-container", "--input", str(tmp / "bin"), "--output",
+            str(tmp / "bout"), "--plans", str(REPO / PLAN_DIR / "plans.json"),
+            "--dataset-json", str(REPO / PLAN_DIR / "dataset.json"),
+            "--device", dev,
+            "--no-save-probabilities", "--no-debug-frames"]
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    # no K1 (conv + InstanceNorm is not K1's conv + folded BN); one CLAHE
+    # over the whole case
+    launches = read_launches("baseline", (0, 1))
+    vol = read_mha(tmp / "bout/images/fetal-abdomen-segmentation/case-840.mha")
+    frame = read_json(tmp / "bout/fetal-abdomen-frame-number.json")
+    arr = vol.array
+    fg = np.flatnonzero(arr.reshape(n, -1).any(axis=1)).tolist()
+    log(f"[baseline] infer-container, MODEL_TAG unset: rc {rc}, {wall:.2f} s "
+        f"for {n} frames (read, PlainConvUNet {pu.base_c}->{pu.max_c}, "
+        f"{pu.n_stages} stages, patch {pu.patch_size[0]}x{pu.patch_size[1]}, "
+        f"seed {BASELINE_SEED}, write compressed, read back); volume "
+        f"{arr.shape} {arr.dtype} values {sorted(np.unique(arr).tolist())}, "
+        f"spacing {vol.spacing}, mask on frames {fg}, frame JSON {frame}, "
+        f"{int(arr.sum())} mask pixels; kernel launches {launches}")
+    if not (rc == 0 and arr.shape == case.shape and arr.dtype == np.uint8
+            and set(np.unique(arr)) <= {0, 1}
+            and all(abs(v - 0.28) < 1e-9 for v in vol.spacing)
+            and (fg == [frame] if frame >= 0 else not arr.any())):
+        raise AssertionError("baseline container outputs failed their "
+                             "contract")
+    totals = dict(launches)
+
+    # a warm engine: frames/s, stage split, TFLOP/s, peak memory
+    tiles = len(compute_tile_starts(case.shape[1], pu.patch_size[0],
+                                    pu.tile_step)) * \
+        len(compute_tile_starts(case.shape[2], pu.patch_size[1],
+                                pu.tile_step))
+    frame_flops = tiles * (4 if pu.use_mirroring else 1) * plain_unet_flops(pu)
+    times = {}
+    engine = BaselineEngine(
+        cfg, PlainConvUNet.from_config(pu, seed=BASELINE_SEED), device=dev,
+        stage_times=times)
+    engine.postprocess(engine.predict(sweep[:8]))                # warm-up
+    kept = {}
+    for label, data in (("140", sweep), ("840", case)):
+        nn = data.shape[0]
+        times.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with count_iterations() as iters:
+            t0 = time.perf_counter()
+            probs = engine.predict(data)
+            seg = engine.postprocess(probs)
+            _, f = select_labeled_mask_and_frame(seg)
+            t = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for k, v in read_launches(f"baseline engine {nn}", (0, 1)).items():
+            totals[k] += v
+        raw = thresholded_labels(probs)
+        stats = []
+        for lab in (1, 2):
+            m = raw == lab
+            comps = len(torch.unique(cc.label_components(m, 6, ndim=3))) - 1
+            stats.append(f"class {lab}: {float(m.float().mean()):.5f} of the "
+                         f"voxels, {comps} 3-D components, "
+                         f"{int((seg == lab).sum())} voxels kept")
+        fwd = times["forward"]
+        log(f"[baseline] warm engine, {nn} frames: {t:.3f} s = "
+            f"{nn / t:.2f} frames/s; stages {fmt_stages(times, nn)}; forward "
+            f"{frame_flops * nn / 1e12:.2f} TFLOP ({tiles} tiles x 4 mirrors "
+            f"x {plain_unet_flops(pu) / 1e9:.1f} GFLOP per frame) in "
+            f"{fwd:.3f} s = {frame_flops * nn / fwd / 1e12:.1f} TFLOP/s "
+            f"({100 * frame_flops * nn / fwd / PEAK_BF16_FLOPS:.1f} % of the "
+            f"bf16 peak); peak memory {peak:.2f} GiB; propagation iterations "
+            f"{iters}; frame {f}; after the threshold {'; '.join(stats)}")
+        if label == "140":
+            probs140, seg140, f140 = probs, seg, f
+        kept[label] = int((seg > 0).sum())
+        del probs, seg, raw
+        torch.cuda.empty_cache()
+    if not any(kept.values()):
+        raise AssertionError(f"seed {BASELINE_SEED} leaves every class "
+                             "empty: the postprocess does no work")
+
+    # card against CPU: the forward on 2 frames (the card's bf16 and, TF32
+    # off, f32 forwards against the CPU's f32), and the postprocess of the
+    # card's 140-frame softmax stack
+    lo = min(max(f140, 0), sweep.shape[0] - 2)
+    sub = sweep[lo:lo + 2]
+    engine.stage_times = None
+    card_bf = engine.predict(sub).cpu()
+    cfg32 = baseline_config("float32")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card32 = BaselineEngine(cfg32, PlainConvUNet.from_config(
+            cfg32.plain_unet, seed=BASELINE_SEED), device=dev).predict(sub).cpu()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    t0 = time.perf_counter()
+    cpu32 = BaselineEngine(cfg32, PlainConvUNet.from_config(
+        cfg32.plain_unet, seed=BASELINE_SEED), device="cpu").predict(sub)
+    t_fwd = time.perf_counter() - t0
+    d32 = float((card32 - cpu32).abs().max())
+    dbf = (card_bf - cpu32).abs()
+    agree = float((thresholded_labels(card_bf)
+                   == thresholded_labels(cpu32)).float().mean())
+    log(f"[baseline] frames {lo}..{lo + 1}, softmax: card f32 (TF32 off) vs "
+        f"CPU f32 max |diff| {d32:.3g} (tolerance 1e-3); card bf16 vs CPU "
+        f"f32 max |diff| {float(dbf.max()):.3g}, mean {float(dbf.mean()):.3g} "
+        f"(tolerance 1e-2), thresholded labels equal on {100 * agree:.3f} % "
+        f"of the pixels (tolerance 99 %); CPU forward {t_fwd:.1f} s")
+    if d32 > 1e-3 or float(dbf.mean()) > 1e-2 or agree < 0.99:
+        raise AssertionError("baseline: card and CPU forwards disagree")
+    t0 = time.perf_counter()
+    seg_cpu = postprocess_softmax_stack(probs140.cpu(), 0.5)
+    t_post = time.perf_counter() - t0
+    _, f_cpu = select_labeled_mask_and_frame(seg_cpu)
+    n_diff = int((seg_cpu != seg140.cpu()).sum())
+    log(f"[baseline] postprocess of the card's 140-frame softmax stack on the "
+        f"CPU ({t_post:.1f} s): {n_diff} labels differ from the card's; "
+        f"frame {f_cpu} on the CPU, {f140} on the card")
+    if n_diff or f_cpu != f140:
+        raise AssertionError("baseline: card and CPU postprocess disagree")
+    return totals
+
+
 def make_seeded_sweep(seed: int):
     from att_aspp_unet_tpu_torch.tools.synthetic import make_sweep
 
@@ -928,6 +1142,7 @@ def main() -> int:
         abdomen_case = [k * N_FRAMES + i for k, b in enumerate(bests)
                         for i in abdomen_frames(N_FRAMES, b)]
         add(phase_container(dev, case, abdomen_case, variables, tmp))
+        add(phase_baseline(dev, sweeps[0], case, tmp))
     k1["launches"] = totals["fused_double_cbr"]
     k2["launches"] = totals["clahe_interp"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -186,11 +186,12 @@ def test_clahe_interp_kernel_bit_exact(rng, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 562, 744), (64, 128, 128),
-                                   (140, 256, 256)])
+                                   (140, 256, 256), (840, 562, 744)])
 def test_clahe_kernel_bit_exact_on_serving_stacks(rng, cuda_device, shape):
     """K2 through CLAHE's own tables: the 8 promoted frames of a cascade at
-    native size, and stacks at the scouts' sizes, where a CLAHE tile is
-    16x16 (128 px) or 32x32 pixels (256 px)."""
+    native size, stacks at the scouts' sizes, where a CLAHE tile is 16x16
+    (128 px) or 32x32 pixels (256 px), and the baseline's whole 840-frame
+    case at native size."""
     from att_aspp_unet_tpu_torch.ops.clahe import clahe_finish, clahe_tables
 
     u8 = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)) \
@@ -239,3 +240,46 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(TypeError):
         tci.clahe_interp(blocks, torch.zeros(1, 2, 256, 4, device=cuda_device),
                          torch.zeros(5, 4, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_baseline_engine_on_the_card_equals_the_cpu(rng, cuda_device):
+    """The baseline path at a small size (base 4 capped at 16, 3 stages, 32 x
+    32 patches, f32, TF32 off) on the card and on the CPU from the same
+    seeded model: softmax within atol 1e-4, K2 launched once, and the
+    postprocess of the card's softmax stack label-identical on both
+    devices, with the same frame."""
+    from att_aspp_unet_tpu_torch.config import Config, PlainUNetConfig
+    from att_aspp_unet_tpu_torch.infer.container import \
+        select_labeled_mask_and_frame
+    from att_aspp_unet_tpu_torch.infer.engine import BaselineEngine
+    from att_aspp_unet_tpu_torch.models import PlainConvUNet
+
+    cfg = Config(plain_unet=PlainUNetConfig(
+        base_c=4, max_c=16, n_stages=3, patch_size=(32, 32),
+        compute_dtype="float32"))
+    sweep = rng.integers(0, 256, (5, 40, 56)).astype(np.uint8)
+    sweep[:, 10:30, 12:44] = 240
+    model = PlainConvUNet.from_config(cfg.plain_unet, seed=2)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = tci.clahe_interp.launches
+        card = BaselineEngine(cfg, model, device=cuda_device)
+        got = card.predict(sweep)
+        assert tci.clahe_interp.launches == before + 1
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    cpu = BaselineEngine(cfg, model, device="cpu")
+    want = cpu.predict(sweep)
+    assert got.shape == want.shape == (3, 5, 40, 56)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-4)
+    seg_card = card.postprocess(got).cpu()
+    seg_cpu = cpu.postprocess(got.cpu())
+    assert torch.equal(seg_card, seg_cpu)
+    assert select_labeled_mask_and_frame(seg_card)[1] == \
+        select_labeled_mask_and_frame(seg_cpu)[1]

@@ -28,13 +28,14 @@ from att_aspp_unet_tpu.preprocess import roi as jroi
 from att_aspp_unet_tpu.utils.npz_weights import save_npz_variables
 from att_aspp_unet_tpu_torch import cli
 from att_aspp_unet_tpu_torch.config import (Config, ContainerConfig,
-                                            ModelConfig, PredictConfig,
-                                            PreprocessConfig)
+                                            ModelConfig, PlainUNetConfig,
+                                            PredictConfig, PreprocessConfig)
 from att_aspp_unet_tpu_torch.infer import container as tcontainer
 from att_aspp_unet_tpu_torch.infer import engine as tengine
 from att_aspp_unet_tpu_torch.infer import predict_cli as tpredict
 from att_aspp_unet_tpu_torch.io import MetaImage, read_json, read_mha, \
     write_mha
+from att_aspp_unet_tpu_torch.models import PlainConvUNet
 from att_aspp_unet_tpu_torch.preprocess import roi as troi
 
 from .test_torch_model import random_variables
@@ -469,28 +470,42 @@ def test_container_run_matches_jax_run(setup, tmp_path, monkeypatch):
 
 def test_run_from_env_honours_model_tag_and_case_id(setup, tmp_path,
                                                     monkeypatch):
+    """MODEL_TAG and CASE_ID of the environment override the configuration;
+    unset, the configured model serves (``baseline``, the default, is the
+    nnU-Net-style model); an unknown tag raises, never falls through."""
     _, _, cfg, vnp = setup
     _case_tree(tmp_path, _sweep(7, n=4))
-    cc = ContainerConfig(input_path=str(tmp_path / "input"),
-                         output_path=str(tmp_path / "out"),
-                         model_tag="baseline", case_id="from_cfg")
-    c = dataclasses.replace(cfg, container=cc)
+    small = PlainUNetConfig(base_c=4, max_c=16, n_stages=3,
+                            patch_size=(32, 32), compute_dtype="float32")
+    plain = PlainConvUNet.from_config(small, seed=1)
     kw = dict(save_probabilities=False, debug_frames=False, device="cpu",
               log=_quiet)
+
+    def cfg_for(tag, out):
+        return dataclasses.replace(cfg, plain_unet=small, container=(
+            ContainerConfig(input_path=str(tmp_path / "input"),
+                            output_path=str(tmp_path / out), model_tag=tag,
+                            case_id="from_cfg")))
+
+    def written(out):
+        seg = tmp_path / out / "images/fetal-abdomen-segmentation"
+        return [p.name for p in seg.iterdir()]
+
     monkeypatch.delenv("MODEL_TAG", raising=False)
     monkeypatch.delenv("CASE_ID", raising=False)
-    # the baseline model is not served: it must raise, never fall through
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        tcontainer.run_from_env(c, vnp, **kw)
+    assert tcontainer.run_from_env(cfg_for("baseline", "o1"), plain, **kw) == 0
+    assert written("o1") == ["from_cfg.mha"]
     monkeypatch.setenv("MODEL_TAG", "att_aspp")
     monkeypatch.setenv("CASE_ID", "from_env")
-    assert tcontainer.run_from_env(c, vnp, **kw) == 0
-    seg = tmp_path / "out/images/fetal-abdomen-segmentation"
-    assert [p.name for p in seg.iterdir()] == ["from_env.mha"]
-    assert not (tmp_path / "out/images/frame000_orig.png").exists()
+    assert tcontainer.run_from_env(cfg_for("baseline", "o2"), vnp, **kw) == 0
+    assert written("o2") == ["from_env.mha"]
+    assert not (tmp_path / "o2/images/frame000_orig.png").exists()
     monkeypatch.setenv("MODEL_TAG", "baseline")
-    with pytest.raises(NotImplementedError):
-        tcontainer.run_from_env(c, vnp, **kw)
+    assert tcontainer.run_from_env(cfg_for("att_aspp", "o3"), plain, **kw) == 0
+    assert written("o3") == ["from_env.mha"]
+    monkeypatch.setenv("MODEL_TAG", "nnunet")
+    with pytest.raises(ValueError, match="nnunet"):
+        tcontainer.run_from_env(cfg_for("baseline", "o4"), plain, **kw)
 
 
 # ------------------------------------------------ directories and the CLI
