@@ -1,11 +1,25 @@
 """Command line of the port.
 
-``python -m att_aspp_unet_tpu_torch.cli predict`` takes the JAX package's
-``predict`` flags for ``.mha`` sweeps (``--weights`` npz, ``--input_dir``,
-``--out_dir``, ``--thr``, ``--no_tta``, ``--base_c``, ``--spacing_json``,
-``--cascade``, ``--bulk N`` and the ``--scout_*`` flags) plus ``--device``
-(default ``cuda``).  hflip TTA is on unless ``--no_tta``, as in the
+Every subcommand takes the model flags of the JAX package's CLI: ``--base_c``,
+``--gate v1|v2``, ``--no_att``, ``--no_aspp``, ``--att_depth`` and
+``--deterministic`` (reseeds the host RNGs), plus ``--device`` (default
+``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels).  Weights
+of the Attention-ASPP-UNet are the JAX package's flat ``.npz`` archives or a
+reference PyTorch ``.pt`` / ``.pth`` state dict (imported non-strictly, with
+the missing and unexpected key counts printed).
+
+``python -m att_aspp_unet_tpu_torch.cli predict`` predicts a directory of
+PNG / JPG frames and ``.mha`` sweeps with the JAX package's ``predict``
+flags (``--weights``, ``--input_dir``, ``--out_dir``, ``--thr``,
+``--no_tta``, ``--spacing_json``, ``--cascade``, ``--bulk N``, the
+``--scout_*`` flags, ``--slice_metrics``, ``--topk_viz``, ``--viz_att``,
+``--weights_noatt``).  hflip TTA is on unless ``--no_tta``, as in the
 reference predict CLI.
+
+``python -m att_aspp_unet_tpu_torch.cli calibrate`` scans thresholds over
+``<val_dir>/images/*.png`` against ``<val_dir>/masks`` and writes
+``<output_dir>/thr.json`` (``--ci``: the per-threshold CI tables and plots);
+hflip TTA is on unless ``--no-tta``.
 
 ``python -m att_aspp_unet_tpu_torch.cli infer-container`` runs the
 Grand-Challenge container contract on one case (``MODEL_TAG`` and ``CASE_ID``
@@ -14,7 +28,8 @@ model is ``baseline``, the nnU-Net-style PlainConvUNet: its architecture
 comes from ``--plans`` / ``--dataset-json`` (nnU-Net's ``plans.json`` and
 ``dataset.json``), its weights from an nnU-Net ``.pth`` / ``.pt`` checkpoint
 or the JAX package's flat ``.npz``; without ``--weights`` it runs on the
-initialisation of seed 0, to exercise the contract.
+initialisation of seed 0, to exercise the contract.  ``att_aspp`` needs
+``--weights``.
 """
 
 from __future__ import annotations
@@ -25,20 +40,43 @@ import os
 import sys
 from pathlib import Path
 
-from .config import Config, ContainerConfig, ModelConfig, PredictConfig
+from .config import (CalibrateConfig, Config, ContainerConfig, ModelConfig,
+                     PredictConfig)
 
 
-def _load_npz(path) -> dict:
-    from .utils.npz_weights import load_npz_variables
+def _config(args, **parts) -> Config:
+    """The configuration of the model flags (and ``parts``); with
+    ``--deterministic`` the host RNGs are reseeded."""
+    if args.deterministic:
+        from .utils.seeding import set_seed
+        set_seed(2025)
+    model = ModelConfig(base_c=args.base_c, use_att=not args.no_att,
+                        use_aspp=not args.no_aspp, att_depth=args.att_depth,
+                        gate_variant=args.gate)
+    return Config(model=model, **parts)
 
+
+def load_variables(path, cfg: ModelConfig) -> dict:
+    """The JAX-layout variables of the Attention-ASPP-UNet ``cfg`` from a
+    flat ``.npz`` archive or a reference ``.pt`` / ``.pth`` state dict (into
+    the seeded ``init_variables(cfg, 0)`` template, non-strict)."""
     weights = Path(path)
-    if weights.suffix != ".npz":
-        raise SystemExit(f"--weights {weights}: the att_aspp model reads "
-                         "flat-npz archives only (.pt import of the "
-                         "reference's checkpoints is ROADMAP Queue A item 7)")
+    if weights.is_dir():
+        raise SystemExit(f"--weights {weights}: a checkpoint directory (the "
+                         "JAX package's Orbax format) is written by training, "
+                         "which is not ported yet (ROADMAP Queue A item 6); "
+                         "export it as a flat .npz")
     if not weights.exists():
         raise SystemExit(f"weights not found: {weights}")
-    return load_npz_variables(weights)
+    if weights.suffix == ".npz":
+        from .utils.npz_weights import load_npz_variables
+        return load_npz_variables(weights)
+    if weights.suffix in (".pt", ".pth"):
+        from .utils.convert import init_variables
+        from .utils.torch_import import load_torch_checkpoint
+        return load_torch_checkpoint(weights, cfg, init_variables(cfg, 0))
+    raise SystemExit(f"--weights {weights}: expected a flat .npz archive or "
+                     "a PyTorch .pt / .pth state dict")
 
 
 def _load_baseline(weights, cfg: Config):
@@ -83,29 +121,44 @@ def cmd_predict(args) -> int:
             raise SystemExit("--scout_rank requires --cascade")
         if args.bulk:
             raise SystemExit("--bulk requires --cascade")
-    cfg = Config(model=ModelConfig(base_c=args.base_c),
-                 predict=PredictConfig(
-                     tta_hflip=not args.no_tta, cascade=args.cascade,
-                     cascade_scout_weights=args.scout_weights,
-                     cascade_scout_base_c=args.scout_base_c,
-                     cascade_scout_thr=args.scout_thr,
-                     cascade_scout_clahe=(False if args.scout_no_clahe
-                                          else None),
-                     cascade_scout_rank=args.scout_rank))
-    predict_directory(cfg, _load_npz(args.weights), Path(args.input_dir),
-                      Path(args.out_dir),
+    cfg = _config(args, predict=PredictConfig(
+        tta_hflip=not args.no_tta, cascade=args.cascade,
+        cascade_scout_weights=args.scout_weights,
+        cascade_scout_base_c=args.scout_base_c,
+        cascade_scout_thr=args.scout_thr,
+        cascade_scout_clahe=False if args.scout_no_clahe else None,
+        cascade_scout_rank=args.scout_rank))
+    noatt = None
+    if args.weights_noatt:
+        # the comparison model of the attention panels: gate-free with
+        # att_depth 0, the same width and bridge
+        na_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, use_att=False, att_depth=0))
+        noatt = (na_cfg, load_variables(args.weights_noatt, na_cfg.model))
+    predict_directory(cfg, load_variables(args.weights, cfg.model),
+                      Path(args.input_dir), Path(args.out_dir),
                       spacing_json=(Path(args.spacing_json)
                                     if args.spacing_json else None),
-                      threshold=args.thr, bulk_group=args.bulk,
-                      device=args.device)
+                      threshold=args.thr, slice_metrics=args.slice_metrics,
+                      topk_viz=args.topk_viz, viz_att=args.viz_att,
+                      noatt=noatt, bulk_group=args.bulk, device=args.device)
+    return 0
+
+
+def cmd_calibrate(args) -> int:
+    from .infer.calibrate import calibrate
+
+    cfg = _config(args, predict=PredictConfig(tta_hflip=not args.no_tta),
+                  calibrate=CalibrateConfig(with_ci=args.ci))
+    calibrate(cfg, load_variables(args.weights, cfg.model),
+              Path(args.val_dir), Path(args.output_dir), device=args.device)
     return 0
 
 
 def cmd_infer_container(args) -> int:
     from .infer.container import run_from_env
 
-    cfg = Config(model=ModelConfig(base_c=args.base_c),
-                 container=ContainerConfig(
+    cfg = _config(args, container=ContainerConfig(
                      input_path=args.input, output_path=args.output,
                      model_tag=args.model_tag, case_id=args.case_id))
     if args.plans:
@@ -119,15 +172,28 @@ def cmd_infer_container(args) -> int:
     if os.getenv("MODEL_TAG", args.model_tag) == "baseline":
         model = _load_baseline(args.weights, cfg)
     elif args.weights is None:
-        raise SystemExit("the att_aspp model needs --weights (a flat .npz)")
+        raise SystemExit("the att_aspp model needs --weights (a flat .npz or "
+                         "a .pt / .pth state dict)")
     else:
-        model = _load_npz(args.weights)
+        model = load_variables(args.weights, cfg.model)
     return run_from_env(cfg, model, device=args.device,
                         save_probabilities=not args.no_save_probabilities,
                         debug_frames=not args.no_debug_frames)
 
 
-def _device_flag(ap) -> None:
+def _common_flags(ap) -> None:
+    """The model flags and ``--device``."""
+    ap.add_argument("--base_c", type=int, default=48)
+    ap.add_argument("--no_att", action="store_true",
+                    help="no attention gates")
+    ap.add_argument("--no_aspp", action="store_true",
+                    help="a single ConvBNReLU bridge instead of the ASPP")
+    ap.add_argument("--att_depth", type=int, default=4,
+                    help="v2 gates on u4 (>= 4) and u3 (>= 3)")
+    ap.add_argument("--gate", choices=["v1", "v2"], default="v1")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="reseed the host RNGs (the eval paths draw no "
+                         "random numbers on the device)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
@@ -136,7 +202,8 @@ def _device_flag(ap) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="att_aspp_unet_tpu_torch")
     sp = ap.add_subparsers(dest="cmd", required=True)
-    pr = sp.add_parser("predict", help="predict a directory of .mha sweeps")
+    pr = sp.add_parser("predict", help="predict a directory of PNG / JPG "
+                       "frames and .mha sweeps")
     pr.add_argument("--weights", required=True)
     pr.add_argument("--input_dir", required=True)
     pr.add_argument("--out_dir", default="./preds")
@@ -144,7 +211,18 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--thr", type=float)
     pr.add_argument("--no_tta", "--no-tta", dest="no_tta", action="store_true",
                     help="disable hflip TTA")
-    pr.add_argument("--base_c", type=int, default=48)
+    pr.add_argument("--slice_metrics", action="store_true",
+                    help="per .mha sweep: refine every frame and write the "
+                         "per-slice area / circularity CSV")
+    pr.add_argument("--topk_viz", action="store_true",
+                    help="per .mha sweep: refine every frame and write the "
+                         "top-K candidate sheet")
+    pr.add_argument("--viz_att", action="store_true",
+                    help="write per-PNG attention panels (raw | prob | mean "
+                         "psi | mask) to <out>/panels")
+    pr.add_argument("--weights_noatt",
+                    help="no-attention checkpoint for the panel's second row "
+                         "(--viz_att)")
     pr.add_argument("--cascade", action="store_true",
                     help="two-tier sweep serving: scout all frames at low "
                          "resolution, full-resolution forward only on the "
@@ -172,8 +250,22 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("refined", "closed"),
                     help="tier-1 rank key: refined-area proxy (default) or "
                          "closed area only")
-    _device_flag(pr)
+    _common_flags(pr)
     pr.set_defaults(fn=cmd_predict)
+
+    ca = sp.add_parser("calibrate", help="pick the threshold of best mean "
+                       "Dice over a val set of PNGs")
+    ca.add_argument("--weights", required=True)
+    ca.add_argument("--val_dir", required=True,
+                    help="holds images/*.png and masks/*.png of the same names")
+    ca.add_argument("--output_dir", default="./checkpoints")
+    ca.add_argument("--ci", action="store_true",
+                    help="also write the per-threshold statistics with a "
+                         "t-distribution 95 %% CI and plots")
+    ca.add_argument("--no_tta", "--no-tta", dest="no_tta", action="store_true",
+                    help="disable hflip TTA")
+    _common_flags(ca)
+    ca.set_defaults(fn=cmd_calibrate)
 
     ic = sp.add_parser("infer-container",
                        help="the Grand-Challenge container contract on the "
@@ -186,21 +278,18 @@ def build_parser() -> argparse.ArgumentParser:
     ic.add_argument("--weights",
                     help="baseline: nnU-Net .pth / .pt checkpoint or flat "
                          ".npz (default: the initialisation of seed 0); "
-                         "att_aspp: "
-                         "flat .npz (required)")
+                         "att_aspp: flat .npz or .pt / .pth (required)")
     ic.add_argument("--plans", help="nnU-Net plans.json for the baseline "
                     "model architecture")
     ic.add_argument("--dataset-json", help="nnU-Net dataset.json "
                     "(num_classes / in_channels)")
-    ic.add_argument("--base_c", type=int, default=48,
-                    help="width of the att_aspp model")
     ic.add_argument("--no-save-probabilities", action="store_true",
                     help="do not dump the probability stack to "
                          "output/probabilities/<sweep>_prob.npy")
     ic.add_argument("--no-debug-frames", action="store_true",
                     help="do not write three frames as raw and enhanced "
                          "PNGs (writing them needs PIL)")
-    _device_flag(ic)
+    _common_flags(ic)
     ic.set_defaults(fn=cmd_infer_container)
     return ap
 

@@ -1,6 +1,7 @@
 """Configuration of the serving paths (direct, cascade, bulk, ROI container,
-nnU-Net baseline): the fields of ``att_aspp_unet_tpu/config.py`` that these
-paths read, with the same names and defaults."""
+nnU-Net baseline) and of threshold calibration: the fields of
+``att_aspp_unet_tpu/config.py`` that these paths read, with the same names
+and defaults."""
 
 from __future__ import annotations
 
@@ -20,12 +21,19 @@ class PreprocessConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Attention-ASPP-UNet, v1 gates on u4/u3/u2, ASPP bridge."""
+    """Attention-ASPP-UNet: v1 gates (BN, on u4/u3/u2) or v2 gates (no BN,
+    residual ``x*a + x``, on u4 when ``att_depth`` >= 4 and u3 when >= 3),
+    ASPP bridge or a single ConvBNReLU (``use_aspp=False``)."""
 
     in_channels: int = 1
     num_classes: int = 1
     base_c: int = 48
+    use_att: bool = True
+    use_aspp: bool = True
+    att_depth: int = 4               # v2 gates on u4 (>= 4) and u3 (>= 3)
+    gate_variant: str = "v1"         # "v1" | "v2"
     aspp_rates: Tuple[int, ...] = (6, 12, 18)
+    aspp_dropout: float = 0.1        # training only: the identity at eval
     compute_dtype: str = "bfloat16"   # "float32" for reference-precision runs
 
 
@@ -94,6 +102,18 @@ class PredictConfig:
 
 
 @dataclass(frozen=True)
+class CalibrateConfig:
+    """Threshold calibration: ``thr_steps`` thresholds from ``thr_lo`` to
+    ``thr_hi``, the mean Dice over the val set at each; ``with_ci`` adds the
+    per-threshold statistics, a t-distribution 95 % CI and plots."""
+
+    thr_lo: float = 0.1
+    thr_hi: float = 0.9
+    thr_steps: int = 17
+    with_ci: bool = False
+
+
+@dataclass(frozen=True)
 class ContainerConfig:
     """Grand-Challenge container contract: read
     ``<input>/images/stacked-fetal-ultrasound/*.mha|*.tiff``, write
@@ -117,4 +137,5 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     plain_unet: PlainUNetConfig = field(default_factory=PlainUNetConfig)
     predict: PredictConfig = field(default_factory=PredictConfig)
+    calibrate: CalibrateConfig = field(default_factory=CalibrateConfig)
     container: ContainerConfig = field(default_factory=ContainerConfig)

@@ -9,7 +9,9 @@
 - ``baseline`` (the default): the nnU-Net-style PlainConvUNet over
   sliding-window tiles at native resolution, the 3-D largest component of
   each class, and the reference's class-1-then-class-2 frame ladder;
-  ``att_aspp``: the ROI path on 128 subsampled frames;
+  ``att_aspp``: the ROI path on 128 subsampled frames, with the model
+  variant of ``cfg.model`` (the CLI's model flags; weights from a flat
+  ``.npz`` or a reference ``.pt``);
 - the selected-frame mask is nearest-neighbour resized back to the native
   (H, W) before writing; optionally the probability stack is dumped and three
   debug frames are written as PNGs.

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import Config
+from ..config import Config, ModelConfig
 from ..device import resolve_device
 from ..measure.ellipse import measure_ac_mm
 from ..models.plain_unet import PlainConvUNet
@@ -53,7 +53,7 @@ from ..postprocess import cc
 from ..postprocess.morphology import (binary_closing, fill_holes,
                                       structuring_ellipse)
 from ..postprocess.refine import (postprocess_roi_stack,
-                                  postprocess_softmax_stack,
+                                  postprocess_softmax_stack, refine_mask,
                                   refine_mask_true_size)
 from ..postprocess.select import (select_best_frame_exact,
                                   select_max_area_frame)
@@ -361,7 +361,9 @@ class AttAsppEngine:
         supplies what the configuration leaves open: ``use_clahe`` (a scout
         trained without CLAHE must not be served CLAHE input), ``img_size``
         (a scout runs at the resolution it was trained at) and ``base_c``
-        (fallback 16; a wrong width is a shape error at load).  The scout's
+        (fallback 16; a wrong width is a shape error at load).  A scout is
+        the v1 + ASPP model whatever variant the main model is: the
+        distilled scouts are trained so.  The scout's
         threshold, unless configured, comes from ``thr.json`` next to the
         weights if that holds ``best_thr_no_tta`` or ``best_thr``, else from
         ``summary.json``; within the chosen file the no-TTA value wins (the
@@ -393,9 +395,13 @@ class AttAsppEngine:
         base_c = pc.cascade_scout_base_c
         if base_c is None:
             base_c = int(meta.get("base_c", 16))
+        v1 = ModelConfig()
+        scout_cfg = dataclasses.replace(
+            cfg.model, base_c=base_c, use_att=v1.use_att,
+            use_aspp=v1.use_aspp, att_depth=v1.att_depth,
+            gate_variant=v1.gate_variant)
         self.scout_model = jax_variables_to_torch(
-            load_npz_variables(path),
-            dataclasses.replace(cfg.model, base_c=base_c), device=self.device)
+            load_npz_variables(path), scout_cfg, device=self.device)
 
     def _mark(self, stage: Optional[str] = None) -> None:
         """End ``stage`` now (None starts the clock)."""
@@ -432,6 +438,45 @@ class AttAsppEngine:
         self._mark("forward")
         native = resize_bilinear(probs, tuple(sweep.shape[-2:]))
         return gaussian_blur(native, pc.gaussian_kernel, 0.0)
+
+    @torch.no_grad()
+    def psi_sweep(self, sweep) -> np.ndarray:
+        """Raw (N, H, W) frames -> (N, H, W) f32 mean attention-psi maps at
+        native resolution (the ``--viz_att`` diagnostic): the preprocessed
+        frames through the forward (no TTA) in ``frame_batch`` micro-batches,
+        every returned psi bilinearly resized to ``img_size``, their mean
+        (zeros without a gate), resized to the frame."""
+        p, pc = self.cfg.preprocess, self.cfg.predict
+        sweep = self._to_device(sweep)
+        x = preprocess_sweep(sweep, p.img_size, p.clahe_clip, p.clahe_grid,
+                             p.median_kernel)
+        S = (p.img_size, p.img_size)
+        maps = []
+        for i in range(0, x.shape[0], pc.frame_batch):
+            xb = x[i:i + pc.frame_batch, None]
+            _, psis = self.model(xb, return_psi=True)
+            ups = [resize_bilinear(a[:, 0].float(), S) for a in psis
+                   if a is not None]
+            maps.append(sum(ups) / len(ups) if ups else torch.zeros(
+                (xb.shape[0],) + S, dtype=torch.float32, device=self.device))
+        psi = resize_bilinear(torch.cat(maps), tuple(sweep.shape[-2:]))
+        return psi.cpu().numpy()
+
+    @torch.no_grad()
+    def refine(self, probs, threshold: Optional[float] = None
+               ) -> torch.Tensor:
+        """Threshold and ``refine_mask`` every frame of an (N, H, W)
+        probability stack: (N, H, W) uint8 {0, 1} on the stack's device."""
+        pc = self.cfg.predict
+        thr = pc.threshold if threshold is None else threshold
+        return refine_mask(_threshold(torch.as_tensor(probs), thr),
+                           pc.min_area_px, pc.min_area_frac, pc.close_kernel)
+
+    def select_best(self, masks) -> int:
+        """Top-``topk_frames`` masks by area, winner by traced-contour
+        circularity (host numpy)."""
+        return select_best_frame_exact(
+            torch.as_tensor(masks).cpu().numpy(), self.cfg.predict.topk_frames)
 
     def _cascade_args(self, thr: float, n: int, n_staged: int, S: int,
                       tier2_batch: int) -> dict:

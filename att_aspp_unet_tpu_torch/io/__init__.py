@@ -2,5 +2,5 @@
 
 from .json_io import read_json, write_json  # noqa: F401
 from .mha import MetaImage, read_mha, write_mha  # noqa: F401
-from .png import write_gray_png  # noqa: F401
+from .png import read_gray_png, write_gray_png  # noqa: F401
 from .volume import read_volume  # noqa: F401

@@ -1,11 +1,21 @@
-"""Grayscale PNG output through PIL, imported inside the function so that
-the package imports without it."""
+"""Grayscale image IO through PIL, imported inside the functions so that the
+package imports without it (a copy of ``att_aspp_unet_tpu/io/png.py``)."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
 import numpy as np
+
+
+def read_gray_png(path) -> np.ndarray:
+    """Read an image file (PNG, JPG, ...) as a uint8 grayscale array (H, W)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        if im.mode != "L":
+            im = im.convert("L")
+        return np.array(im, dtype=np.uint8)
 
 
 def write_gray_png(path, array: np.ndarray) -> None:

@@ -1,3 +1,4 @@
 """Eval-only building blocks."""
 
-from .blocks import ASPP, AttentionGateV1, FusedCBRPair, UpBlock  # noqa: F401
+from .blocks import (ASPP, AttentionGateV1, AttentionGateV2,  # noqa: F401
+                     ConvBNReLU, FusedCBRPair, UpBlock)

@@ -2,17 +2,20 @@
 (N, C, H, W), memory channel-last.
 
 Counterpart of ``att_aspp_unet_tpu/nn/blocks.py`` for inference, built from
-the BN-folded packed plan of ``att_aspp_unet_tpu/infer/fast_forward.py``.
-Every module holds its weights as buffers in the model's compute dtype and
-its folded BatchNorm scale/bias in f32.
+the BN-folded packed plan of ``att_aspp_unet_tpu/infer/fast_forward.py``
+and extended to every variant of the model: v1 gates (BN folded) and v2
+gates (no BN, a bias on psi, residual ``x*a + x``), and the single
+ConvBNReLU bridge of ``--no_aspp``.  Every module holds its weights as
+buffers in the model's compute dtype and its folded BatchNorm scale/bias
+and conv biases in f32.
 
 Precision follows the packed plan: in bf16 each op computes in f32 on the
 bf16 operands and rounds its result to bf16; in f32 nothing is rounded (the
 reference-precision mode the tests hold against the flax model).  Every
 3x3 ConvBNReLU pair is one launch of kernel K1
-(``ops/kernels/fused_conv.fused_double_cbr``); the ASPP branches, the 1x1
-convs and the transposed conv are plain torch ops, as the JAX package left
-them to XLA.
+(``ops/kernels/fused_conv.fused_double_cbr``); the ASPP branches, the
+``--no_aspp`` bridge conv, the 1x1 convs and the transposed conv are plain
+torch ops, as the JAX package left them to XLA.
 
 Layout: every block takes and returns (N, C, H, W) tensors whose memory is
 ``torch.channels_last`` (NHWC strides), the layout K1 reads and writes, so
@@ -41,12 +44,15 @@ def _affine(y, s, b):
 
 
 def pointwise(x, w, s=None, b=None, relu=False, sigmoid=False):
-    """1x1 conv (N,Ci,H,W) x (Ci,Co) in f32, optional folded BN, ReLU or
-    sigmoid; result in x's dtype, channel-last in memory (a matmul over the
-    last dimension of the NHWC view, returned as its NCHW view)."""
+    """1x1 conv (N,Ci,H,W) x (Ci,Co) in f32, optional scale ``s`` (folded
+    BN) and bias ``b``, ReLU or sigmoid; result in x's dtype, channel-last in
+    memory (a matmul over the last dimension of the NHWC view, returned as
+    its NCHW view)."""
     y = x.permute(0, 2, 3, 1).to(F32) @ w.to(F32)
     if s is not None:
-        y = y * s + b
+        y = y * s
+    if b is not None:
+        y = y + b
     if relu:
         y = torch.relu(y)
     if sigmoid:
@@ -87,6 +93,31 @@ class FusedCBRPair(nn.Module):
         packed = self.packed() if x.device.type == "cuda" else None
         return fused_double_cbr(x, self.w1, self.s1, self.b1, self.w2,
                                 self.s2, self.b2, packed=packed)
+
+
+class ConvBNReLU(nn.Module):
+    """One Conv3x3(pad 1, no bias) + folded BN + ReLU: the bridge of the
+    ``--no_aspp`` variant (its Dropout is the identity at eval).  A library
+    convolution in the compute dtype (f32 accumulation), then the affine and
+    ReLU in f32."""
+
+    def __init__(self, cin: int, cout: int, device=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        kw = dict(device=device)
+        # OIHW with channel-last strides, as the input's (a loaded state
+        # dict is copied into these strides)
+        self.register_buffer("w", torch.zeros(
+            cout, cin, 3, 3, dtype=dtype, **kw).contiguous(
+                memory_format=torch.channels_last))
+        self.register_buffer("s", torch.ones(cout, dtype=F32, **kw))
+        self.register_buffer("b", torch.zeros(cout, dtype=F32, **kw))
+
+    def forward(self, x):
+        with exact_f32():
+            y = F.conv2d(x, self.w, padding=1)
+        y = torch.relu(_affine(y.to(F32), self.s, self.b)).to(x.dtype)
+        return y.contiguous(memory_format=torch.channels_last)
 
 
 class ASPP(nn.Module):
@@ -138,7 +169,8 @@ class ASPP(nn.Module):
 
 
 class AttentionGateV1(nn.Module):
-    """v1 gate: ``x * sigmoid(BN(psi(relu(BN(Wg g) + BN(Wx x)))))``."""
+    """v1 gate: ``a = sigmoid(BN(psi(relu(BN(Wg g) + BN(Wx x)))))``; returns
+    ``(x * a, a)``."""
 
     def __init__(self, cg: int, cx: int, inter: int, device=None,
                  dtype=torch.bfloat16):
@@ -155,23 +187,51 @@ class AttentionGateV1(nn.Module):
         hx = pointwise(x, self.wx_w, self.wx_s, self.wx_b)
         a = torch.relu(hg.to(F32) + hx.to(F32)).to(x.dtype)
         a = pointwise(a, self.psi_w, self.psi_s, self.psi_b, sigmoid=True)
-        return x * a
+        return x * a, a
+
+
+class AttentionGateV2(nn.Module):
+    """v2 gate: ``a = sigmoid(psi(relu(Wg g + Wx x)) + bias)``, no BN;
+    returns ``(x * a + x, a)``."""
+
+    def __init__(self, cg: int, cx: int, inter: int, device=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        kw = dict(device=device)
+        self.register_buffer("wg_w", torch.zeros(cg, inter, dtype=dtype, **kw))
+        self.register_buffer("wx_w", torch.zeros(cx, inter, dtype=dtype, **kw))
+        self.register_buffer("psi_w", torch.zeros(inter, 1, dtype=dtype, **kw))
+        self.register_buffer("psi_b", torch.zeros(1, dtype=F32, **kw))
+
+    def forward(self, g, x):
+        hg = pointwise(g, self.wg_w)
+        hx = pointwise(x, self.wx_w)
+        a = torch.relu(hg.to(F32) + hx.to(F32)).to(x.dtype)
+        a = pointwise(a, self.psi_w, b=self.psi_b, sigmoid=True)
+        xf = x.to(F32)
+        return (xf * a.to(F32) + xf).to(x.dtype), a
 
 
 class UpBlock(nn.Module):
-    """Decoder stage: ConvTranspose 2x2 stride 2 of the gate signal, optional
-    v1 gate on the skip, concat ``[skip, g]``, one fused CBR pair."""
+    """Decoder stage: ConvTranspose 2x2 stride 2 of the gate signal, the
+    skip through a v1 or v2 gate where ``use_att``, concat ``[skip, g]``, one
+    fused CBR pair.  Returns ``(h, psi)``, psi None without a gate."""
 
-    def __init__(self, cin: int, features: int, gated: bool, device=None,
-                 dtype=torch.bfloat16):
+    def __init__(self, cin: int, features: int, use_att: bool,
+                 gate_variant: str = "v1", device=None, dtype=torch.bfloat16):
         super().__init__()
         kw = dict(device=device)
         # (u, v, ci, co), pre-flipped so out[2h+u, 2w+v] = x[h, w] @ k[u, v]
         self.register_buffer("up_k", torch.zeros(2, 2, cin, features, dtype=dtype, **kw))
         self.register_buffer("up_b", torch.zeros(features, dtype=F32, **kw))
-        self.att = (AttentionGateV1(features, features, features // 2,
-                                    device=device, dtype=dtype)
-                    if gated else None)
+        self.att = None
+        if use_att and gate_variant == "v1":
+            self.att = AttentionGateV1(features, features, features // 2,
+                                       device=device, dtype=dtype)
+        elif use_att:
+            self.att = AttentionGateV2(features, features,
+                                       max(8, features // 4),
+                                       device=device, dtype=dtype)
         self.pair = FusedCBRPair(2 * features, features, features,
                                  device=device, dtype=dtype)
 
@@ -186,6 +246,7 @@ class UpBlock(nn.Module):
 
     def forward(self, g, skip):
         g = self.up(g)
+        psi = None
         if self.att is not None:
-            skip = self.att(g, skip)
-        return self.pair(torch.cat([skip, g], dim=1))
+            skip, psi = self.att(g, skip)
+        return self.pair(torch.cat([skip, g], dim=1)), psi

@@ -1,9 +1,12 @@
 """Frame selection.  Counterpart of
 ``att_aspp_unet_tpu/postprocess/select.py``: the max-area pick of the ROI
-path (tensors, on the device) and the reference-parity top-K by area with the
-winner by traced-contour circularity (host numpy)."""
+path (tensors, on the device), the reference-parity top-K by area with the
+winner by traced-contour circularity (host numpy), and the Crofton
+circularity estimate that the diagnostic outputs report."""
 
 from __future__ import annotations
+
+import math
 
 from typing import Tuple
 
@@ -39,3 +42,18 @@ def select_max_area_frame(masks: torch.Tensor
     frame = torch.where(empty, torch.full_like(idx, -1), idx)
     sel = fg.index_select(0, idx[None])[0] & ~empty
     return sel.to(torch.uint8), frame
+
+
+def circularity(mask) -> torch.Tensor:
+    """4*pi*A/P^2 per mask of a (..., H, W) stack in f32, 0 where empty, with
+    the Crofton perimeter pi/4 x the number of exposed unit edges (the image
+    border counts as background)."""
+    m = (torch.as_tensor(mask) > 0).to(torch.float32)
+    area = m.sum(dim=(-2, -1))
+    edges = (torch.diff(m, dim=-1).abs().sum(dim=(-2, -1))
+             + torch.diff(m, dim=-2).abs().sum(dim=(-2, -1))
+             + m[..., :, 0].sum(-1) + m[..., :, -1].sum(-1)
+             + m[..., 0, :].sum(-1) + m[..., -1, :].sum(-1))
+    per = edges * (math.pi / 4.0)
+    return torch.where(per > 1e-6, 4.0 * math.pi * area / (per * per),
+                       torch.zeros_like(per))

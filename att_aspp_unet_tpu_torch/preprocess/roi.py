@@ -31,30 +31,28 @@ def crop_roi(frames: torch.Tensor, roi: int = 224
     intensity centroids.  Returns (patches, origins), origins (N, 2) int64
     (y0, x0).  Frames smaller than ``roi`` are zero-padded bottom/right first.
 
-    The centroid is ``floor(sum(y * m) / count)`` with f32 sums over the
-    frame, as the JAX package computes it.  While the sums stay below 2^24
-    (frames up to about 128 x 128) they are exact in any order and the
-    origins equal JAX's bit for bit; on a 562 x 744 frame they reach 2e8, the
-    summation order shows in the last bits, and an origin can differ from
-    JAX's by one pixel where the centroid lies within ~1e-4 of an integer.
+    The centroid is ``floor(sum(y * m) / count)`` computed exactly, in
+    int64 (the same on every device).  The JAX package sums in f32: on a
+    562 x 744 frame its sums reach 2e8, and where the centroid lies within
+    ~1e-4 of an integer its rounding can move an origin by one pixel
+    (``tests/compare_roi_origins.py`` counts such frames).
     """
     N, H, W = frames.shape
     if H < roi or W < roi:
         frames = F.pad(frames, (0, max(0, roi - W), 0, max(0, roi - H)))
         N, H, W = frames.shape
-    f32 = torch.float32
-    x = frames.to(f32)
+    x = frames.to(torch.float32)
     thr = x.mean(dim=(-2, -1), keepdim=True) * 1.2
-    m = (x > thr).to(f32)
-    cnt = m.sum(dim=(-2, -1))
-    ys = torch.arange(H, dtype=f32, device=x.device)[None, :, None]
-    xs = torch.arange(W, dtype=f32, device=x.device)[None, None, :]
+    m = x > thr
+    rows = m.sum(dim=-1, dtype=torch.int64)                 # (N, H)
+    cols = m.sum(dim=-2, dtype=torch.int64)                 # (N, W)
+    cnt = rows.sum(dim=-1)
     den = cnt.clamp(min=1)
     any_fg = cnt > 0
-    cy = torch.where(any_fg, torch.floor((ys * m).sum(dim=(-2, -1)) / den),
-                     torch.full_like(cnt, H // 2)).long()
-    cx = torch.where(any_fg, torch.floor((xs * m).sum(dim=(-2, -1)) / den),
-                     torch.full_like(cnt, W // 2)).long()
+    cy = torch.where(any_fg, (rows * torch.arange(H, device=x.device)).sum(
+        dim=-1) // den, torch.full_like(cnt, H // 2))
+    cx = torch.where(any_fg, (cols * torch.arange(W, device=x.device)).sum(
+        dim=-1) // den, torch.full_like(cnt, W // 2))
     y0 = (cy - roi // 2).clamp(0, H - roi)
     x0 = (cx - roi // 2).clamp(0, W - roi)
     origins = torch.stack([y0, x0], dim=1)

@@ -9,7 +9,15 @@ converted to numpy) and builds the port's :class:`AttentionASPPUNet`:
 - every BatchNorm folds to a per-channel f32 (scale, bias), eps 1e-5;
 - ConvTranspose kernels are pre-flipped spatially (flax applies the reversed
   kernel), so the port's up-conv indexes them forward;
-- the ASPP's dilated kernels go to OIHW for ``F.conv2d``.
+- the ASPP's dilated kernels and the ``--no_aspp`` bridge conv go to OIHW
+  for ``F.conv2d``;
+- the tree is read as the config's variant reads it (v1 or v2 gates, the
+  ungated levels, ASPP or ``bridge_conv``); subtrees the variant does not
+  use are ignored, as flax's ``apply`` ignores them.
+
+``init_variables`` draws a seeded variables tree in the JAX layout for any
+variant (the template of non-strict ``.pt`` import, and the weights of runs
+that have no checkpoint).
 
 ``jax_plain_unet_to_torch`` does the same for the baseline's
 ``PlainConvUNet``, into the port's nnU-Net-named module: HWIO -> OIHW, the
@@ -20,13 +28,14 @@ InstanceNorm scale/bias -> weight/bias (the inverse of the JAX package's
 
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
 from ..config import ModelConfig, PlainUNetConfig
-from ..models.att_aspp_unet import AttentionASPPUNet
+from ..models.att_aspp_unet import AttentionASPPUNet, gated
 from ..models.plain_unet import PlainConvUNet
 from ..ops.kernels.fused_conv import fold_batchnorm, pack_conv_weight
 
@@ -52,22 +61,28 @@ def _pw(sd, prefix, p, s, conv, bn):
 
 
 def torch_state_dict(variables: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
-    """The port's state dict (numpy f32 arrays) from JAX variables."""
+    """The port's state dict (numpy f32 arrays) from JAX variables, for the
+    variant ``cfg`` describes."""
     p, s = variables["params"], variables["batch_stats"]
     sd: Dict[str, np.ndarray] = {}
     for lvl in (1, 2, 3, 4):
         _pair(sd, f"d{lvl}", p[f"d{lvl}_0"], s[f"d{lvl}_0"],
               p[f"d{lvl}_1"], s[f"d{lvl}_1"])
 
-    bp, bs = p["bridge"], s["bridge"]
-    _pw(sd, "bridge.b0", bp, bs, "branch0_conv", "branch0_bn")
-    for i in range(len(cfg.aspp_rates)):
-        k = _np(bp[f"branch{i + 1}_conv"]["kernel"])          # HWIO
-        sd[f"bridge.rate{i}_w"] = k.transpose(3, 2, 0, 1)      # OIHW
-        sd[f"bridge.rate{i}_s"], sd[f"bridge.rate{i}_b"] = _bn(
-            bp[f"branch{i + 1}_bn"], bs[f"branch{i + 1}_bn"])
-    _pw(sd, "bridge.pool", bp, bs, "pool_conv", "pool_bn")
-    _pw(sd, "bridge.proj", bp, bs, "project_conv", "project_bn")
+    if cfg.use_aspp:
+        bp, bs = p["bridge"], s["bridge"]
+        _pw(sd, "bridge.b0", bp, bs, "branch0_conv", "branch0_bn")
+        for i in range(len(cfg.aspp_rates)):
+            k = _np(bp[f"branch{i + 1}_conv"]["kernel"])          # HWIO
+            sd[f"bridge.rate{i}_w"] = k.transpose(3, 2, 0, 1)      # OIHW
+            sd[f"bridge.rate{i}_s"], sd[f"bridge.rate{i}_b"] = _bn(
+                bp[f"branch{i + 1}_bn"], bs[f"branch{i + 1}_bn"])
+        _pw(sd, "bridge.pool", bp, bs, "pool_conv", "pool_bn")
+        _pw(sd, "bridge.proj", bp, bs, "project_conv", "project_bn")
+    else:
+        bp, bs = p["bridge_conv"], s["bridge_conv"]
+        sd["bridge_conv.w"] = _np(bp["conv"]["kernel"]).transpose(3, 2, 0, 1)
+        sd["bridge_conv.s"], sd["bridge_conv.b"] = _bn(bp["bn"], bs["bn"])
 
     for lvl in (4, 3, 2, 1):
         up, us = p[f"u{lvl}"], s[f"u{lvl}"]
@@ -75,15 +90,110 @@ def torch_state_dict(variables: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]
         sd[f"u{lvl}.up_b"] = _np(up["up"]["bias"])
         _pair(sd, f"u{lvl}.pair", up["conv0"], us["conv0"], up["conv1"],
               us["conv1"])
-        if lvl >= 2:
-            ap, as_ = up["att"], us["att"]
+        if not gated(cfg, lvl):
+            continue
+        ap = up["att"]
+        if cfg.gate_variant == "v1":
+            as_ = us["att"]
             _pw(sd, f"u{lvl}.att.wg", ap, as_, "Wg_conv", "Wg_bn")
             _pw(sd, f"u{lvl}.att.wx", ap, as_, "Wx_conv", "Wx_bn")
             _pw(sd, f"u{lvl}.att.psi", ap, as_, "psi_conv", "psi_bn")
+        else:
+            for name, key in (("wg", "Wg"), ("wx", "Wx"), ("psi", "psi")):
+                sd[f"u{lvl}.att.{name}_w"] = _np(ap[key]["kernel"])[0, 0]
+            sd[f"u{lvl}.att.psi_b"] = _np(ap["psi"]["bias"])
 
     sd["out_w"] = _np(p["out_conv"]["kernel"])[0, 0]
     sd["out_b"] = _np(p["out_conv"]["bias"])
     return sd
+
+
+def _variable_layout(cfg: ModelConfig
+                     ) -> Iterator[Tuple[str, Tuple[str, ...], tuple]]:
+    """(collection, path, shape) of every leaf of the flax model's variables
+    for the variant ``cfg``, as ``model.init`` lays them out."""
+    c = cfg.base_c
+
+    def conv(path, shape, bias=False):
+        yield "params", path + ("kernel",), shape
+        if bias:
+            yield "params", path + ("bias",), (shape[-1],)
+
+    def bn(path, ch):
+        for coll, leaf in (("params", "scale"), ("params", "bias"),
+                           ("batch_stats", "mean"), ("batch_stats", "var")):
+            yield coll, path + (leaf,), (ch,)
+
+    def cbr(path, cin, cout):
+        yield from conv(path + ("conv",), (3, 3, cin, cout))
+        yield from bn(path + ("bn",), cout)
+
+    widths = {1: c, 2: 2 * c, 3: 4 * c, 4: 8 * c}
+    cin = cfg.in_channels
+    for lvl in (1, 2, 3, 4):
+        yield from cbr((f"d{lvl}_0",), cin, widths[lvl])
+        yield from cbr((f"d{lvl}_1",), widths[lvl], widths[lvl])
+        cin = widths[lvl]
+    if cfg.use_aspp:
+        f, br = 16 * c, ("bridge",)
+        yield from conv(br + ("branch0_conv",), (1, 1, 8 * c, f))
+        yield from bn(br + ("branch0_bn",), f)
+        for i in range(1, len(cfg.aspp_rates) + 1):
+            yield from conv(br + (f"branch{i}_conv",), (3, 3, 8 * c, f))
+            yield from bn(br + (f"branch{i}_bn",), f)
+        yield from conv(br + ("pool_conv",), (1, 1, 8 * c, f))
+        yield from bn(br + ("pool_bn",), f)
+        yield from conv(br + ("project_conv",),
+                        (1, 1, (len(cfg.aspp_rates) + 2) * f, f))
+        yield from bn(br + ("project_bn",), f)
+    else:
+        yield from cbr(("bridge_conv",), 8 * c, 16 * c)
+    g = 16 * c
+    for lvl in (4, 3, 2, 1):
+        f, u = widths[lvl], (f"u{lvl}",)
+        yield from conv(u + ("up",), (2, 2, g, f), bias=True)
+        if gated(cfg, lvl) and cfg.gate_variant == "v1":
+            for name, ci, co in (("Wg", f, f // 2), ("Wx", f, f // 2),
+                                 ("psi", f // 2, 1)):
+                yield from conv(u + ("att", f"{name}_conv"), (1, 1, ci, co))
+                yield from bn(u + ("att", f"{name}_bn"), co)
+        elif gated(cfg, lvl):
+            fint = max(8, f // 4)
+            yield from conv(u + ("att", "Wg"), (1, 1, f, fint))
+            yield from conv(u + ("att", "Wx"), (1, 1, f, fint))
+            yield from conv(u + ("att", "psi"), (1, 1, fint, 1), bias=True)
+        yield from cbr(u + ("conv0",), 2 * f, f)
+        yield from cbr(u + ("conv1",), f, f)
+        g = f
+    yield from conv(("out_conv",), (1, 1, c, cfg.num_classes), bias=True)
+
+
+def init_variables(cfg: ModelConfig, seed: int = 0) -> Dict:
+    """A seeded ``{"params", "batch_stats"}`` numpy tree in the JAX layout
+    for the variant ``cfg``: the keys and shapes of flax's ``model.init``,
+    with flax's default initialisers drawn from a CPU ``torch.Generator``
+    (kernels LeCun-normal truncated at two standard deviations, variance
+    1 / fan-in over the input channels and taps; biases, BN bias and mean
+    0; BN scale and var 1).  The numbers are not those of
+    ``model.init(PRNGKey(seed))`` of the JAX package."""
+    gen = torch.Generator().manual_seed(int(seed))
+    out: Dict = {"params": {}, "batch_stats": {}}
+    for coll, path, shape in _variable_layout(cfg):
+        leaf = path[-1]
+        if leaf == "kernel":
+            std = math.sqrt(1.0 / math.prod(shape[:-1])) / 0.87962566103423978
+            t = torch.empty(shape, dtype=torch.float32)
+            torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                        generator=gen)
+            value = t.numpy()
+        else:
+            value = np.full(shape, 1.0 if leaf in ("scale", "var") else 0.0,
+                            np.float32)
+        node = out[coll]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return out
 
 
 def jax_variables_to_torch(variables_np: Dict, cfg: ModelConfig = ModelConfig(),

@@ -9,15 +9,18 @@ Phases (any failure exits non-zero and prints no result line):
    (one ``nvcc`` per source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving paths give it — K1 ``fused_double_cbr`` at the eight
-   conv-pair shapes of the base_c 48 model at 512x512 (N = 32), of the
-   base_c 16 scout at 128x128 (N = 128) and of the base_c 48 model on the
-   224x224 ROI (N = 16), bf16 channel-last tensors, rtol/atol 2e-2, the line
-   of each pair naming the path it took (wgmma or mma.sync); K2
-   ``clahe_interp`` through CLAHE's own tables, bit-exact, on the 140 x 562
-   x 744 sweep, on the 8, 32 and 128 native frames that the cascade, the bulk
-   path and the container enhance, on the sweep at 256 x 256 and 128 x 128
-   (a scout's CLAHE: tiles of 32 x 32 and 16 x 16 pixels) and on the whole
-   840 x 562 x 744 case (the baseline) — and time
+   conv-pair shapes of the base_c 48 model at 512x512 (N = 32; N = 2, a PNG
+   frame with its hflip twin; N = 1, one frame's psi maps; N = 8, the
+   variants' forward), of the base_c 16 scout at 128x128 (N = 128) and of
+   the base_c 48 model on the 224x224 ROI (N = 16), bf16 channel-last
+   tensors, rtol/atol 2e-2, the line of each pair naming the path it took
+   (wgmma or mma.sync); K2 ``clahe_interp`` through CLAHE's own tables,
+   bit-exact, on the 140 x 562 x 744 sweep, on the 8, 32 and 128 native
+   frames that the cascade, the bulk path and the container enhance, on the
+   sweep at 256 x 256 and 128 x 128 (a scout's CLAHE: tiles of 32 x 32 and
+   16 x 16 pixels), on the whole 840 x 562 x 744 case (the baseline), on one
+   native frame (a PNG) and on the calibrate phase's 16 x 562 x 744 and
+   16 x 480 x 640 groups — and time
    kernel, plain version and a library yardstick (for K1 cuDNN's
    bf16 convolutions on channel-last and on contiguous tensors; the faster
    sum is ``library_ms``);
@@ -46,7 +49,25 @@ Phases (any failure exits non-zero and prints no result line):
    840-frame case (frames/s, stage split, the forward's TFLOP/s, peak
    memory, class shares, 3-D components); card against CPU: the forward on
    2 frames, the postprocess of the 140-frame softmax stack.  K1 does not
-   run on this path.
+   run on this path;
+8. variants: the model variants (v2 gates with ``att_depth`` 4 and 3,
+   ``--no_att``, ``--no_aspp``, v2 ``--no_att --no_aspp``, and v1 as the
+   yardstick) at full width from the seeded init with random BN statistics:
+   the bf16 forward on 8 frames, card against the CPU's plain versions
+   (logits within 2e-2 of their range, signs equal on 99 %, psi maps within
+   2e-2), and a warm ``predict_case`` on the 140-frame sweep (frames/s); then
+   ``predict --gate v2`` with a reference ``.pt`` state dict written from
+   ``tests/torch_ref.py::AttentionASPPUNetV2`` (0 missing and 0 unexpected
+   keys; the card's frame equals the CPU's on 6 frames around it);
+9. calibrate: ``calibrate --ci`` with the trained weights on 32 seeded PNG
+   frames and truth masks in two resolution groups (562 x 744, 480 x 640), on
+   the card and on the CPU: the same thr.json, per-image Dice within 2e-2,
+   the mean curve within 5e-3;
+10. png: ``predict`` on a directory of PNG frames with ``--viz_att
+   --weights_noatt`` (a seeded no-attention model), card and CPU: equal masks
+   and AC rows, panels written; ``--slice_metrics --topk_viz`` on the
+   140-frame sweep on the card, and on 6 of its frames on the card and on
+   the CPU: equal per-slice CSVs.
 
 Every path is driven with the launch counters at zero and must have launched
 the kernels it runs.  The line before the last is a JSON object with one
@@ -55,7 +76,9 @@ entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import io
 import json
 import multiprocessing
 import os
@@ -89,9 +112,11 @@ BASELINE_SEED = 0
 
 # label -> (base_c, input size, frames per launch) of K1's shape sets: the
 # direct path and tier 2 (a 16-frame micro-batch with its hflip twins), the
-# scout tier of an 840-frame case, the ROI path
+# scout tier of an 840-frame case, the ROI path, one PNG frame with its
+# hflip twin, one frame's psi maps, the variants' 8-frame forward
 K1_SHAPE_SETS = {"main": (48, 512, 32), "scout": (16, 128, 128),
-                 "roi": (48, 224, 16)}
+                 "roi": (48, 224, 16), "png": (48, 512, 2),
+                 "psi": (48, 512, 1), "variants": (48, 512, 8)}
 
 
 def log(msg: str) -> None:
@@ -187,10 +212,13 @@ def phase_k1_set(dev, label):
                 return F.relu(F.conv2d(h, w2o, padding=1) * sb[2] + sb[3])
             return run
 
-        ms = cuda_ms(lambda: fc.fused_double_cbr(*args, packed=packed))
+        # a launch of a few frames lasts ~0.1 ms: more repetitions
+        reps = 5 if N >= 16 else 25
+        ms = cuda_ms(lambda: fc.fused_double_cbr(*args, packed=packed), reps)
         plain_ms = cuda_ms(lambda: fc.fused_double_cbr_reference(*args), 3)
-        lib_cl = cuda_ms(library(x, torch.channels_last))
-        lib_nchw = cuda_ms(library(x.contiguous(), torch.contiguous_format))
+        lib_cl = cuda_ms(library(x, torch.channels_last), reps)
+        lib_nchw = cuda_ms(library(x.contiguous(), torch.contiguous_format),
+                           reps)
         flops = 2.0 * N * hw * hw * 9 * (cin * cmid + cmid * cout)
         nbytes = (2 * (x.numel() + w1.numel() + w2.numel() + N * cout * hw * hw)
                   + 4 * (2 * cmid + 2 * cout))
@@ -218,20 +246,25 @@ def phase_k1_set(dev, label):
     return tot
 
 
-def phase_k1(dev):
-    """K1 at all three shape sets.  Returns the kernel's JSON entry: the
-    main path's sums under the contract's keys, the scout's and the ROI's
-    under names of their own."""
-    sets = {label: phase_k1_set(dev, label) for label in K1_SHAPE_SETS}
-    main = sets["main"]
-    entry = {"name": "fused_double_cbr", "route": "cuda",
-             "source": "att_aspp_unet_tpu_torch/csrc/fused_double_cbr.cu",
-             "replaces": "att_aspp_unet_tpu/ops/pallas/fused_conv.py:140",
-             "max_abs_err": max(t["max_abs_err"] for t in sets.values()),
-             "ms": main["ms"], "plain_ms": main["plain_ms"],
-             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-             "library_ms": min(main["lib_cl"], main["lib_nchw"])}
-    for label in ("scout", "roi"):
+def phase_k1(dev, labels, entry=None):
+    """K1 at the shape sets ``labels``.  Returns the kernel's JSON entry (or
+    adds to ``entry``): the main path's sums under the contract's keys, the
+    other sets' under names of their own."""
+    sets = {label: phase_k1_set(dev, label) for label in labels}
+    if entry is None:
+        main = sets["main"]
+        entry = {"name": "fused_double_cbr", "route": "cuda",
+                 "source": "att_aspp_unet_tpu_torch/csrc/fused_double_cbr.cu",
+                 "replaces": "att_aspp_unet_tpu/ops/pallas/fused_conv.py:140",
+                 "max_abs_err": 0.0,
+                 "ms": main["ms"], "plain_ms": main["plain_ms"],
+                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                 "library_ms": min(main["lib_cl"], main["lib_nchw"])}
+    entry["max_abs_err"] = max([entry["max_abs_err"]]
+                               + [t["max_abs_err"] for t in sets.values()])
+    for label in labels:
+        if label == "main":
+            continue
         t = sets[label]
         entry.update({f"{label}_ms": t["ms"], f"{label}_plain_ms": t["plain_ms"],
                       f"{label}_bound_ms": t["bound_ms"],
@@ -240,13 +273,14 @@ def phase_k1(dev):
     return entry
 
 
-def k2_stacks(dev, sweeps):
+def k2_stacks(dev, sweeps, val):
     """label -> the uint8 stack that a path hands to CLAHE: the whole sweep
     (direct), the 8 promoted frames of a cascade, the 32 of a bulk group of
     four, the container's 128 subsampled frames of the 840-frame case, the
     sweep at the sizes of the scouts (256 px: the scout that was trained
-    with CLAHE; 128 px: tiles of 16 x 16 pixels), and the whole 840-frame
-    case at native size (the baseline)."""
+    with CLAHE; 128 px: tiles of 16 x 16 pixels), the whole 840-frame case
+    at native size (the baseline), one native frame (a PNG input) and the
+    calibrate phase's two resolution groups."""
     import numpy as np
     import torch
 
@@ -266,10 +300,12 @@ def k2_stacks(dev, sweeps):
     return {"main": u8(sweeps[0]), "cascade": u8(sweeps[0][mid:mid + 8]),
             "bulk": u8(np.concatenate([sw[mid:mid + 8] for sw in sweeps[:4]])),
             "roi": u8(case[idxs]), "scout": low(256), "scout128": low(128),
-            "baseline": u8(case)}
+            "baseline": u8(case), "png": u8(sweeps[0][mid:mid + 1]),
+            **{"calibrate_{}x{}".format(*g[0].shape[1:]): u8(g[0])
+               for g in val}}
 
 
-def phase_k2(dev, sweeps):
+def phase_k2(dev, sweeps, val):
     """K2 on the CLAHE operands of every stack of :func:`k2_stacks`,
     bit-exact.  Returns the kernel's JSON entry: the whole sweep's numbers
     under the contract's keys, the other stacks' under names of their own."""
@@ -282,7 +318,7 @@ def phase_k2(dev, sweeps):
              "source": "att_aspp_unet_tpu_torch/csrc/clahe_interp.cu",
              "replaces": "att_aspp_unet_tpu/ops/pallas/clahe_interp.py:90",
              "max_abs_err": 0.0}
-    for label, u8 in k2_stacks(dev, sweeps).items():
+    for label, u8 in k2_stacks(dev, sweeps, val).items():
         hw = tuple(u8.shape[-2:])
         blocks, luts, wts = clahe_tables(u8)
         got = ci.clahe_interp(blocks, luts, wts)
@@ -1075,6 +1111,430 @@ def phase_baseline(dev, sweep, case, tmp):
     return totals
 
 
+# the model variants of the [variants] phase (the default v1 model first, as
+# the yardstick within the call), with the CLI's flags
+VARIANTS = [("v1 (default)", {}),
+            ("v2, att_depth 4", dict(gate_variant="v2")),
+            ("v2, att_depth 3", dict(gate_variant="v2", att_depth=3)),
+            ("v1, --no_att", dict(use_att=False)),
+            ("v1, --no_aspp", dict(use_aspp=False)),
+            ("v2, --no_att --no_aspp", dict(gate_variant="v2", use_att=False,
+                                            use_aspp=False))]
+VARIANT_SEED = 0             # seeded init: no trained variant weights exist
+# the calibrate phase's val set: (seed, frames, H, W) of each resolution group
+VAL_GROUPS = [(10, 16, 562, 744), (11, 16, 480, 640)]
+N_PNG = 4                    # PNG frames of the [png] phase
+
+
+def seeded_variables(mcfg, seed: int = VARIANT_SEED):
+    """``init_variables`` of the variant with BatchNorm statistics drawn as
+    ``tests/torch_ref.py::randomize_bn_stats`` draws them (mean 0.1 N(0, 1),
+    var U(0.75, 1.25)), from a CPU generator."""
+    import torch
+
+    from att_aspp_unet_tpu_torch.utils.convert import init_variables
+
+    variables = init_variables(mcfg, seed)
+    gen = torch.Generator().manual_seed(seed)
+
+    def walk(tree):
+        if "mean" in tree:
+            tree["mean"][:] = (torch.randn(tree["mean"].shape, generator=gen)
+                               * 0.1).numpy()
+            tree["var"][:] = (torch.rand(tree["var"].shape, generator=gen)
+                              * 0.5 + 0.75).numpy()
+            return
+        for sub in tree.values():
+            walk(sub)
+
+    walk(variables["batch_stats"])
+    return variables
+
+
+def save_flat_npz(path: Path, variables) -> None:
+    """A variables tree as the flat ``params/...`` / ``batch_stats/...`` npz
+    archive that the CLI reads."""
+    import numpy as np
+
+    flat = {}
+
+    def walk(prefix, tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(f"{prefix}/{k}", v)
+            else:
+                flat[f"{prefix}/{k}"] = np.asarray(v)
+
+    for coll in ("params", "batch_stats"):
+        walk(coll, variables[coll])
+    np.savez(path, **flat)
+
+
+def make_val_group(seed: int, n: int, H: int, W: int):
+    """The frames of ``make_sweep(n, H, W, seed)`` with the truth masks the
+    generator draws for them (0 / 255; zero on the frames without an
+    abdomen)."""
+    import numpy as np
+
+    from att_aspp_unet_tpu_torch.tools.synthetic import make_frame
+
+    rng = np.random.default_rng(seed)
+    best = int(rng.integers(int(0.3 * n), int(0.7 * n)))
+    imgs, masks = [], []
+    for i in range(n):
+        q = max(0.0, 1.0 - abs(i - best) / max(n * 0.25, 1))
+        im, m, _ = (make_frame(rng, H, W, positive=False) if q < 0.25 else
+                    make_frame(rng, H, W, positive=True, quality=q))
+        imgs.append(im)
+        masks.append(m)
+    return np.stack(imgs), np.stack(masks)
+
+
+def run_cli(argv, where: str, expect=None, count: bool = True):
+    """``cli.main(argv)`` with the launch counters zeroed just before and,
+    with ``count``, read just after and held to ``expect``; returns
+    (seconds, launches or None, stdout)."""
+    import torch
+
+    from att_aspp_unet_tpu_torch import cli
+
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{where}: cli rc {rc}")
+    return wall, read_launches(where, expect) if count else None, \
+        out.getvalue()
+
+
+def phase_variants(dev, sweep, best_true, thr, tmp):
+    """Every model variant at full width (base_c 48, 512 x 512, bf16) from the
+    seeded init: the forward on 8 frames, card against the CPU's plain
+    versions (logits and psi maps), then a warm ``predict_case`` on the
+    140-frame sweep; then ``cli predict --gate v2`` with a reference ``.pt``
+    state dict of ``tests/torch_ref.py::AttentionASPPUNetV2``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from att_aspp_unet_tpu_torch.config import ModelConfig
+    from att_aspp_unet_tpu_torch.infer.engine import AttAsppEngine
+    from att_aspp_unet_tpu_torch.io import read_json
+    from att_aspp_unet_tpu_torch.preprocess import preprocess_sweep
+    from att_aspp_unet_tpu_torch.utils.convert import jax_variables_to_torch
+
+    n = sweep.shape[0]
+    lo = min(max(0, best_true - 4), n - 8)
+    p = main_config().preprocess
+    with torch.no_grad():
+        x = preprocess_sweep(torch.as_tensor(sweep[lo:lo + 8]), p.img_size,
+                             p.clahe_clip, p.clahe_grid,
+                             p.median_kernel)[:, None]
+    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    rates = {}
+    for label, kw in VARIANTS:
+        mcfg = dataclasses.replace(ModelConfig(base_c=BASE_C), **kw)
+        variables = seeded_variables(mcfg)
+        card = jax_variables_to_torch(variables, mcfg, device=dev)
+        got, got_psi = card(x.to(dev), return_psi=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, want_psi = jax_variables_to_torch(variables, mcfg)(
+            x, return_psi=True)
+        t_cpu = time.perf_counter() - t0
+        span = float(want.max() - want.min())
+        err = float((got.float().cpu() - want).abs().max())
+        sign = float(((got.cpu() > 0) == (want > 0)).float().mean())
+        psi_err = [None if w is None else
+                   float((g.float().cpu() - w.float()).abs().max())
+                   for g, w in zip(got_psi, want_psi)]
+        if ([g is None for g in got_psi] != [w is None for w in want_psi]
+                or err > 2e-2 * span or sign < 0.99
+                or any(e is not None and e > 2e-2 for e in psi_err)):
+            raise AssertionError(
+                f"variants {label}: card and CPU forwards disagree: max "
+                f"|logit diff| {err:.4g} (range {span:.4g}), sign agreement "
+                f"{sign:.5f}, psi max |diff| {psi_err}")
+
+        cfg = dataclasses.replace(main_config(), model=mcfg)
+        engine = AttAsppEngine(cfg, variables, device=dev, model=card)
+        engine.predict_case(sweep[:16], SPACING, thr)          # warm-up
+        times = []
+        for _ in range(2):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame, _, _ = engine.predict_case(sweep, SPACING, thr)
+            times.append(time.perf_counter() - t0)
+            got_l = read_launches(f"variants {label}",
+                                  (forward_launches(n, 16), 1))
+            for k, v in got_l.items():
+                totals[k] += v
+        rates[label] = n / min(times)
+        stages = {}
+        engine.stage_times = stages
+        engine.predict_case(sweep, SPACING, thr)
+        engine.stage_times = None
+        log(f"[variants] {label}: forward on 8 frames {lo}..{lo + 7}, card vs "
+            f"CPU plain ({t_cpu:.1f} s): max |logit diff| {err:.4g} of a "
+            f"{span:.4g} range (tolerance 2e-2 of it), signs agree on "
+            f"{100 * sign:.3f} % (tolerance 99 %), psi [psi3, psi2] max "
+            f"|diff| {psi_err} (tolerance 2e-2); warm predict_case on {n} "
+            f"frames: {min(times):.3f} s / {max(times):.3f} s = "
+            f"{rates[label]:.1f} frames/s (x{rates[label] / rates[VARIANTS[0][0]]:.3f}"
+            f" of {VARIANTS[0][0]}), frame {frame}; stages (synchronised) "
+            f"{fmt_stages(stages, n)}")
+        del card, engine, got, want
+        torch.cuda.empty_cache()
+
+    # a reference .pt state dict through the predict CLI
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_ref import AttentionASPPUNetV2, randomize_bn_stats
+
+    torch.manual_seed(VARIANT_SEED)
+    ref = AttentionASPPUNetV2(base_c=BASE_C)
+    randomize_bn_stats(ref, torch.Generator().manual_seed(VARIANT_SEED))
+    torch.save(ref.state_dict(), tmp / "v2_reference.pt")
+    argv = ["predict", "--weights", str(tmp / "v2_reference.pt"), "--gate",
+            "v2", "--base_c", str(BASE_C), "--input_dir", str(tmp / "in140"),
+            "--out_dir", str(tmp / "out_v2pt"), "--thr", str(thr),
+            "--device", dev]
+    wall, launches, out = run_cli(argv, "variants cli .pt",
+                                  (forward_launches(n, 16), 1))
+    for k, v in launches.items():
+        totals[k] += v
+    counts = [s for s in out.splitlines() if "[torch_import]" in s]
+    frame = int(read_json(tmp / "out_v2pt/sweep_0/"
+                          "fetal-abdomen-frame-number.json"))
+    log(f"[variants] cli predict --gate v2 --weights <AttentionASPPUNetV2 "
+        f"base_c {BASE_C}>.pt on {n} frames: {wall:.2f} s = {n / wall:.1f} "
+        f"frames/s end to end; {counts}; frame {frame}; kernel launches "
+        f"{launches}")
+    if counts != ["[torch_import] loaded with 0 missing & 0 unexpected keys"]:
+        raise AssertionError(f"variants: .pt import reported {counts}")
+    # the card's frame against the CPU's on six frames around it
+    from att_aspp_unet_tpu_torch.utils.convert import init_variables
+    from att_aspp_unet_tpu_torch.utils.torch_import import \
+        load_torch_checkpoint
+
+    mcfg = ModelConfig(base_c=BASE_C, gate_variant="v2")
+    with contextlib.redirect_stdout(io.StringIO()):
+        variables = load_torch_checkpoint(tmp / "v2_reference.pt", mcfg,
+                                          init_variables(mcfg, 0))
+    cfg = dataclasses.replace(main_config(), model=mcfg)
+    lo = min(max(0, frame - 3), n - 6)
+    sub = sweep[lo:lo + 6]
+    f_card, m_card, _ = AttAsppEngine(cfg, variables, device=dev) \
+        .predict_case(sub, SPACING, thr)
+    t0 = time.perf_counter()
+    f_cpu, m_cpu, _ = AttAsppEngine(cfg, variables, device="cpu") \
+        .predict_case(sub, SPACING, thr)
+    d = dice(m_card, m_cpu)
+    log(f"[variants] the .pt model on frames {lo}..{lo + 5}: card frame "
+        f"{lo + f_card}, CPU plain frame {lo + f_cpu} "
+        f"({time.perf_counter() - t0:.1f} s), mask Dice {d:.5f}, "
+        f"{int(m_card.sum())} / {int(m_cpu.sum())} mask pixels")
+    if f_card != f_cpu or d < 0.98:
+        raise AssertionError("variants: card and CPU plain versions disagree")
+    return totals
+
+
+def phase_calibrate(dev, val, tmp):
+    """``cli calibrate`` with the repo's trained weights on a PNG val set of
+    two resolution groups, on the card and on the CPU: the same thr.json, the
+    per-image Dice curves within 2e-2 and their mean within 5e-3."""
+    import numpy as np
+
+    from att_aspp_unet_tpu_torch.io import read_json, write_gray_png
+
+    vdir = tmp / "val"
+    k = 0
+    for imgs, masks in val:
+        for im, m in zip(imgs, masks):
+            write_gray_png(vdir / "images" / f"v{k:02d}.png", im)
+            write_gray_png(vdir / "masks" / f"v{k:02d}.png", m)
+            k += 1
+    n_groups = len(val)
+    # one predict_full per group: one micro-batch of 16 frames with their
+    # hflip twins, one CLAHE
+    expect = (sum(forward_launches(len(g[0]), 16) for g in val), n_groups)
+    curves, thrs, secs = {}, {}, {}
+    launches = None
+    for device in (dev, "cpu"):
+        out = tmp / f"cal_{device}"
+        argv = ["calibrate", "--weights", str(REPO / MAIN_WEIGHTS),
+                "--base_c", str(BASE_C), "--val_dir", str(vdir), "--output_dir", str(out), "--ci",
+                "--device", device]
+        secs[device], got, _ = run_cli(argv, "calibrate", expect,
+                                       count=device == dev)
+        launches = launches or got
+        thrs[device] = read_json(out / "thr.json")
+        with open(out / "calibrate_raw.csv", newline="") as f:
+            curves[device] = np.array([r[1:] for r in csv.reader(f)][1:],
+                                      float)
+    d_img = float(np.abs(curves[dev] - curves["cpu"]).max())
+    d_mean = float(np.abs(curves[dev].mean(0) - curves["cpu"].mean(0)).max())
+    log(f"[calibrate] cli calibrate --ci on {k} PNGs ({n_groups} resolution "
+        f"groups: {[tuple(g[0].shape) for g in val]}): card {secs[dev]:.2f} s "
+        f"= {k / secs[dev]:.1f} frames/s, CPU plain {secs['cpu']:.1f} s; "
+        f"thr.json card {thrs[dev]}, CPU {thrs['cpu']}; best mean Dice "
+        f"{curves[dev].mean(0).max():.4f}; per-image Dice max |diff| "
+        f"{d_img:.3g} (tolerance 2e-2), mean-curve max |diff| {d_mean:.3g} "
+        f"(tolerance 5e-3); kernel launches {launches}")
+    if thrs[dev] != thrs["cpu"] or d_img > 2e-2 or d_mean > 5e-3:
+        raise AssertionError("calibrate: card and CPU disagree")
+    return launches
+
+
+def phase_png(dev, sweep, best_true, thr, tmp):
+    """``cli predict`` on a directory of PNG frames with ``--viz_att
+    --weights_noatt`` (the no-att model at base_c 48 from the seeded init) on
+    the card and on the CPU: equal masks, equal AC rows, panels written; then
+    ``--slice_metrics --topk_viz`` on the 140-frame sweep on the card, and on
+    six of its frames on the card and on the CPU: equal CSV rows."""
+    import numpy as np
+
+    from att_aspp_unet_tpu_torch.config import ModelConfig
+    from att_aspp_unet_tpu_torch.io import (MetaImage, read_gray_png,
+                                            write_gray_png, write_mha)
+
+    n = sweep.shape[0]
+    lo = min(max(0, best_true - N_PNG // 2), n - N_PNG)
+    pdir = tmp / "png_in"
+    for i in range(lo, lo + N_PNG):
+        write_gray_png(pdir / f"sweep0_s{i}.png", sweep[i])
+    (tmp / "spacing.json").write_text(json.dumps({"sweep0": list(SPACING)}))
+    save_flat_npz(tmp / "noatt.npz", seeded_variables(
+        ModelConfig(base_c=BASE_C, use_att=False, att_depth=0)))
+    # per PNG: predict_full (hflip pair), psi_sweep (one frame), the no-att
+    # model's predict_full (hflip pair); each enhances once
+    expect = (N_PNG * 3 * forward_launches(1, 16), N_PNG * 3)
+    secs, launches = {}, None
+    for device in (dev, "cpu"):
+        argv = ["predict", "--weights", str(REPO / MAIN_WEIGHTS),
+                "--base_c", str(BASE_C), "--input_dir", str(pdir), "--out_dir", str(tmp / f"png_{device}"),
+                "--thr", str(thr), "--spacing_json", str(tmp / "spacing.json"),
+                "--viz_att", "--weights_noatt", str(tmp / "noatt.npz"),
+                "--device", device]
+        secs[device], got, _ = run_cli(argv, "png", expect,
+                                       count=device == dev)
+        launches = launches or got
+    stems = [f"sweep0_s{i}" for i in range(lo, lo + N_PNG)]
+    masks = {d: [read_gray_png(tmp / f"png_{d}/{s}_mask.png") for s in stems]
+             for d in (dev, "cpu")}
+    diff = [int((a != b).sum()) for a, b in zip(masks[dev], masks["cpu"])]
+    dices = [dice(a, b) for a, b in zip(masks[dev], masks["cpu"])]
+    fg = [int((m > 0).sum()) for m in masks[dev]]
+    rows = {d: (tmp / f"png_{d}/ac_results.csv").read_text().splitlines()
+            for d in (dev, "cpu")}
+    panels = sorted(p.name for p in (tmp / f"png_{dev}/panels").iterdir())
+    log(f"[png] cli predict --viz_att --weights_noatt on {N_PNG} PNG frames "
+        f"{lo}..{lo + N_PNG - 1} ({sweep.shape[1]}x{sweep.shape[2]}): card "
+        f"{secs[dev]:.2f} s = {secs[dev] / N_PNG:.3f} s per frame (the CLI "
+        f"call, models built and loaded), CPU plain {secs['cpu']:.1f} s; mask "
+        f"pixels {fg}, differing from the CPU's {diff} (mask Dice "
+        f"{[round(d, 6) for d in dices]}, tolerance 0.999: bf16 rounding at "
+        f"the threshold); AC rows card {rows[dev][1:]}, CPU "
+        f"{rows['cpu'][1:]}; panels {len(panels)}; kernel launches "
+        f"{launches}")
+    if (min(dices) < 0.999 or rows[dev] != rows["cpu"]
+            or len(panels) != N_PNG):
+        raise AssertionError("png: card and CPU disagree or panels missing")
+
+    # a warm engine pair per PNG frame: what the CLI does for each frame
+    import dataclasses
+
+    import torch
+
+    from att_aspp_unet_tpu_torch.infer.engine import AttAsppEngine
+    from att_aspp_unet_tpu_torch.utils.npz_weights import load_npz_variables
+
+    cfg = main_config()
+    na_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, use_att=False, att_depth=0))
+    main_eng = AttAsppEngine(cfg, load_npz_variables(REPO / MAIN_WEIGHTS),
+                             device=dev)
+    na_eng = AttAsppEngine(na_cfg, load_npz_variables(tmp / "noatt.npz"),
+                           device=dev)
+    frames = [read_gray_png(pdir / f"{s}.png") for s in stems]
+
+    def one(sl):
+        probs = main_eng.predict_full(sl[None])
+        main_eng.refine(probs, thr).cpu()
+        main_eng.psi_sweep(sl[None])
+        na_eng.refine(na_eng.predict_full(sl[None]), thr).cpu()
+
+    one(frames[0])                                   # warm-up
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for sl in frames:
+        one(sl)
+    per = (time.perf_counter() - t0) / N_PNG
+    warm = read_launches("png, warm engines", expect)
+    for k, v in warm.items():
+        launches[k] += v
+    log(f"[png] warm engines, per PNG frame (predict_full + refine, psi "
+        f"maps, the no-att model's predict_full + refine): {per:.4f} s; "
+        f"kernel launches {warm}")
+    del main_eng, na_eng
+
+    # the diagnostics of a sweep: every frame refined, per-slice CSV, top-K
+    argv = ["predict", "--weights", str(REPO / MAIN_WEIGHTS), "--base_c",
+            str(BASE_C), "--input_dir", str(tmp / "in140"), "--out_dir",
+            str(tmp / "diag140"), "--thr",
+            str(thr), "--slice_metrics", "--topk_viz", "--device", dev]
+    wall, got, _ = run_cli(argv, "png diagnostics",
+                           (forward_launches(n, 16), 1))
+    for k, v in got.items():
+        launches[k] += v
+    with open(tmp / "diag140/sweep_0_slices.csv", newline="") as f:
+        n_rows = len(list(csv.reader(f))) - 1
+    sheet = tmp / "diag140/sweep_0_topk.png"
+    log(f"[png] cli predict --slice_metrics --topk_viz on the {n}-frame sweep: "
+        f"{wall:.2f} s = {n / wall:.1f} frames/s; {n_rows} CSV rows, top-K "
+        f"sheet {sheet.stat().st_size if sheet.exists() else 0} bytes; kernel "
+        f"launches {got}")
+    if n_rows != n or not sheet.exists():
+        raise AssertionError("png: diagnostics outputs missing")
+    lo = min(max(0, best_true - 3), n - 6)
+    (tmp / "diag_in").mkdir()
+    write_mha(tmp / "diag_in/sub.mha", MetaImage(sweep[lo:lo + 6],
+                                                 spacing=(0.28, 0.28, 1.0)))
+    slices, text = {}, {}
+    for device in (dev, "cpu"):
+        argv = ["predict", "--weights", str(REPO / MAIN_WEIGHTS),
+                "--base_c", str(BASE_C), "--input_dir", str(tmp / "diag_in"),
+                "--out_dir", str(tmp / f"diag_{device}"), "--thr", str(thr),
+                "--slice_metrics", "--topk_viz", "--device", device]
+        _, got, _ = run_cli(argv, "png diagnostics, 6 frames",
+                            (forward_launches(6, 16), 1), count=device == dev)
+        for k, v in (got or {}).items():
+            launches[k] += v
+        text[device] = (tmp / f"diag_{device}/ac_results.csv").read_text()
+        with open(tmp / f"diag_{device}/sub_slices.csv", newline="") as f:
+            slices[device] = np.array([r[2:] for r in csv.reader(f)][1:],
+                                      float)
+    d_area = np.abs(slices[dev][:, 0] - slices["cpu"][:, 0])
+    d_circ = float(np.abs(slices[dev][:, 1] - slices["cpu"][:, 1]).max())
+    log(f"[png] --slice_metrics on frames {lo}..{lo + 5}, card vs CPU plain: "
+        f"areas card {slices[dev][:, 0].astype(int).tolist()}, differing by "
+        f"{d_area.astype(int).tolist()} px (tolerance 0.1 % of the area, at "
+        f"least 2 px), circularity max |diff| {d_circ:.3g} (tolerance 1e-3); "
+        f"AC row card {text[dev].splitlines()[1:]}, CPU "
+        f"{text['cpu'].splitlines()[1:]}")
+    if (text[dev] != text["cpu"] or d_circ > 1e-3 or np.any(
+            d_area > np.maximum(2, 1e-3 * slices["cpu"][:, 0]))):
+        raise AssertionError("png: the slice CSVs or the frame differ")
+    return launches
+
+
 def make_seeded_sweep(seed: int):
     from att_aspp_unet_tpu_torch.tools.synthetic import make_sweep
 
@@ -1108,16 +1568,21 @@ def main() -> int:
             mp_context=multiprocessing.get_context("spawn")) as pool:
         futures = [pool.submit(make_seeded_sweep, SEED + k)
                    for k in range(N_SWEEPS)]
+        val_futures = [pool.submit(make_val_group, *g) for g in VAL_GROUPS]
         phase_build()
-        k1 = phase_k1(dev)
+        k1 = phase_k1(dev, ("main", "scout", "roi"))
         t0 = time.perf_counter()
         made = [f.result() for f in futures]
+        val = [f.result() for f in val_futures]
+    # the launches of a few frames after the generators are done: with the
+    # host's cores busy, the gaps between short launches would be timed
+    phase_k1(dev, ("png", "psi", "variants"), k1)
     sweeps = [m[0] for m in made]
     bests = [m[1] for m in made]
     log(f"[data] {N_SWEEPS} synthetic sweeps {sweeps[0].shape} seeds "
         f"{SEED}..{SEED + N_SWEEPS - 1}, best frames {bests} (waited "
         f"{time.perf_counter() - t0:.1f} s after the K1 phase)")
-    k2 = phase_k2(dev, sweeps)
+    k2 = phase_k2(dev, sweeps, val)
     variables, thr = load_main()
     totals = {"fused_double_cbr": 0, "clahe_interp": 0}
 
@@ -1137,6 +1602,10 @@ def main() -> int:
         add(phase_bulk(dev, sweeps, thr, cascade_engine))
         add(phase_directory(sweeps, thr, tmp, direct_engine, cascade_engine))
         del direct_engine, cascade_engine
+        torch.cuda.empty_cache()
+        add(phase_variants(dev, sweeps[0], bests[0], thr, tmp))
+        add(phase_calibrate(dev, val, tmp))
+        add(phase_png(dev, sweeps[0], bests[0], thr, tmp))
         torch.cuda.empty_cache()
         case = np.concatenate(sweeps)
         abdomen_case = [k * N_FRAMES + i for k, b in enumerate(bests)

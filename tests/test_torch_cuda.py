@@ -283,3 +283,51 @@ def test_baseline_engine_on_the_card_equals_the_cpu(rng, cuda_device):
     assert torch.equal(seg_card, seg_cpu)
     assert select_labeled_mask_and_frame(seg_card)[1] == \
         select_labeled_mask_and_frame(seg_cpu)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(gate_variant="v2"),
+                                dict(gate_variant="v2", att_depth=3),
+                                dict(use_aspp=False),
+                                dict(gate_variant="v2", use_att=False,
+                                     use_aspp=False, att_depth=0)],
+                         ids=["v2", "v2-depth3", "no_aspp", "v2-bare"])
+def test_variant_forward_on_the_card_matches_plain(rng, cuda_device, kw):
+    """A variant of the bf16 model (base_c 16, seeded init with random BN
+    statistics) on 2 frames at 128 x 128: the card (K1 on every pair, cuDNN
+    for the ``--no_aspp`` bridge) against the CPU's plain versions.  Logits
+    within 2e-2 of their range, every psi map within 2e-2, and K1 launched
+    once per pair."""
+    from att_aspp_unet_tpu_torch.config import ModelConfig
+    from att_aspp_unet_tpu_torch.utils.convert import (init_variables,
+                                                       jax_variables_to_torch)
+
+    cfg = ModelConfig(base_c=16, **kw)
+    variables = init_variables(cfg, seed=0)
+    for bs in variables["batch_stats"].values():
+        for leaf in _bn_leaves(bs):
+            leaf["mean"][:] = rng.standard_normal(leaf["mean"].shape) * 0.1
+            leaf["var"][:] = rng.random(leaf["var"].shape) * 0.5 + 0.75
+    x = torch.from_numpy(rng.random((2, 1, 128, 128)).astype(np.float32))
+    before = tfc.fused_double_cbr.launches
+    card = jax_variables_to_torch(variables, cfg, device=cuda_device)
+    got, got_psi = card(x.to(cuda_device), return_psi=True)
+    torch.cuda.synchronize()
+    assert tfc.fused_double_cbr.launches == before + 8
+    want, want_psi = jax_variables_to_torch(variables, cfg)(x,
+                                                           return_psi=True)
+    span = float(want.max() - want.min())
+    assert float((got.cpu() - want).abs().max()) <= 2e-2 * span
+    for g, w in zip(got_psi, want_psi):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert float((g.float().cpu() - w.float()).abs().max()) <= 2e-2
+
+
+def _bn_leaves(tree):
+    """The BatchNorm statistics dicts ({"mean", "var"}) of a subtree."""
+    if "mean" in tree:
+        yield tree
+        return
+    for sub in tree.values():
+        yield from _bn_leaves(sub)

@@ -10,6 +10,7 @@ non-degenerate masks, and both engines receive the same value."""
 
 import dataclasses
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -128,6 +129,65 @@ def test_crop_roi_and_paste_bit_exact(shape, roi):
                                            shape[1:]))
     got = troi.paste_roi_probs(_t(probs), to, shape[1:]).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_crop_roi_origins_at_native_size():
+    """``crop_roi`` on seeded 562 x 744 synthetic frames (a 16-frame sweep of
+    the generator the container case is made of): the port's centroid is
+    exact (int64 sums; a numpy reference in int64 gives the same origins),
+    and on the input the ROI path gives it, the enhanced frames / 255, its
+    origins equal the JAX package's f32 ones.  ``tests/compare_roi_origins.py``
+    counts the differing origins over the six 140-frame sweeps: 0 of 840
+    enhanced, 2 of 840 raw / 255, where JAX's f32 sums round the centroid
+    across an integer."""
+    from att_aspp_unet_tpu_torch.tools.synthetic import make_sweep
+
+    from .compare_roi_origins import differing_origins, roi_inputs
+
+    sweep = make_sweep(16, 562, 744, seed=0)[0]
+    inputs = roi_inputs(sweep)
+    assert differing_origins(inputs["enhanced"]) == 0
+    for frames in inputs.values():
+        _, got = troi.crop_roi(_t(frames), 224)
+        m = frames > frames.mean(axis=(1, 2), dtype=np.float32,
+                                 keepdims=True) * np.float32(1.2)
+        cnt = m.sum(axis=(1, 2), dtype=np.int64)
+        cy = (m.sum(axis=2, dtype=np.int64) * np.arange(562)).sum(1) // cnt
+        cx = (m.sum(axis=1, dtype=np.int64) * np.arange(744)).sum(1) // cnt
+        want = np.stack([np.clip(cy - 112, 0, 562 - 224),
+                         np.clip(cx - 112, 0, 744 - 224)], axis=1)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_predict_roi_full_width_in_repo_weights_matches_jax():
+    """The ROI container path with the repo's trained base_c 48 weights on
+    two native 562 x 744 synthetic frames at the abdomen, f32 on both
+    sides: probabilities within atol 1e-3 (trained logits reach ~10 and f32
+    sums over up to 9 x 768 terms run in different orders), the same
+    postprocessed stack and the same frame."""
+    from att_aspp_unet_tpu_torch.tools.synthetic import make_sweep
+    from att_aspp_unet_tpu_torch.utils.npz_weights import load_npz_variables
+
+    weights = Path(__file__).resolve().parents[1] / \
+        "resources/synthetic/weights.npz"
+    vnp = load_npz_variables(weights)
+    sweep, best, _ = make_sweep(12, 562, 744, seed=1)
+    frames = sweep[best:best + 2]
+    jcfg = JConfig(model=JModelConfig(compute_dtype="float32",
+                                      param_dtype="float32"))
+    cfg = Config(model=ModelConfig(compute_dtype="float32"))
+    got = tengine.AttAsppEngine(cfg, vnp, device="cpu").predict_roi(frames)
+    jeng = jengine.AttAsppEngine(jcfg, {"params": vnp["params"],
+                                        "batch_stats": vnp["batch_stats"]})
+    want = np.asarray(jeng.predict_roi(frames))
+    assert got.shape == want.shape == (2, 562, 744)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
+    assert (want > 0.5).any()
+    post = tengine.AttAsppEngine(cfg, vnp, device="cpu").postprocess_roi(got)
+    jpost = np.asarray(jeng.postprocess_roi(jnp.asarray(want)))
+    np.testing.assert_array_equal(post.numpy(), jpost)
+    assert tengine.select_mask_and_frame(post)[1] == \
+        int(jengine.select_mask_and_frame(jpost)[1]) >= 0
 
 
 # ------------------------------------------------------- ranking, batches
