@@ -2,11 +2,13 @@
 
 Every subcommand takes the model flags of the JAX package's CLI: ``--base_c``,
 ``--gate v1|v2``, ``--no_att``, ``--no_aspp``, ``--att_depth`` and
-``--deterministic`` (reseeds the host RNGs), plus ``--device`` (default
-``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels).  Weights
-of the Attention-ASPP-UNet are the JAX package's flat ``.npz`` archives or a
-reference PyTorch ``.pt`` / ``.pth`` state dict (imported non-strictly, with
-the missing and unexpected key counts printed).
+``--deterministic`` (reseeds the RNGs, cuDNN picks deterministic
+algorithms), plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
+PyTorch versions of the kernels).  Weights of the Attention-ASPP-UNet are
+the JAX package's flat ``.npz`` archives, a checkpoint that ``train`` wrote
+(``ckpt_main/best``, ...) or a reference PyTorch ``.pt`` / ``.pth`` state
+dict (imported non-strictly, with the missing and unexpected key counts
+printed).
 
 ``python -m att_aspp_unet_tpu_torch.cli predict`` predicts a directory of
 PNG / JPG frames and ``.mha`` sweeps with the JAX package's ``predict``
@@ -20,6 +22,18 @@ reference predict CLI.
 ``<val_dir>/images/*.png`` against ``<val_dir>/masks`` and writes
 ``<output_dir>/thr.json`` (``--ci``: the per-threshold CI tables and plots);
 hflip TTA is on unless ``--no-tta``.
+
+``python -m att_aspp_unet_tpu_torch.cli train`` trains the model on
+``<train_dir>/images`` + ``masks`` (``--neg_dir``, ``--val_dir``, else a
+positive-only 10 % val split) with the JAX package's flags: ``--stage
+main|finetune`` (``--pretrained``), ``--epochs``, ``--batch_size``, ``--lr``,
+``--differential_lr``, ``--img_size``, ``--no_clahe``, ``--edge_w`` /
+``--no_edge_loss``, ``--neg_bce_w``, ``--seed``, ``--export_npz``.  It writes
+``<output_dir>/ckpt_main`` (or ``ckpt_finetune``) with ``best``, ``last`` and
+``metrics.csv``, resumes from ``last``, and writes ``summary.json`` (and with
+``--export_npz`` the flat f16 ``weights.npz`` that ``predict --weights`` and
+``--scout_weights`` read).  The JAX CLI's TPU-only ``--lowering`` is not
+taken.
 
 ``python -m att_aspp_unet_tpu_torch.cli infer-container`` runs the
 Grand-Challenge container contract on one case (``MODEL_TAG`` and ``CASE_ID``
@@ -40,16 +54,16 @@ import os
 import sys
 from pathlib import Path
 
-from .config import (CalibrateConfig, Config, ContainerConfig, ModelConfig,
-                     PredictConfig)
+from .config import (CalibrateConfig, Config, ContainerConfig, LossConfig,
+                     ModelConfig, PredictConfig, TrainConfig)
 
 
 def _config(args, **parts) -> Config:
     """The configuration of the model flags (and ``parts``); with
-    ``--deterministic`` the host RNGs are reseeded."""
+    ``--deterministic`` the RNGs are reseeded (``--seed``, default 2025)."""
     if args.deterministic:
         from .utils.seeding import set_seed
-        set_seed(2025)
+        set_seed(getattr(args, "seed", 2025))
     model = ModelConfig(base_c=args.base_c, use_att=not args.no_att,
                         use_aspp=not args.no_aspp, att_depth=args.att_depth,
                         gate_variant=args.gate)
@@ -58,14 +72,15 @@ def _config(args, **parts) -> Config:
 
 def load_variables(path, cfg: ModelConfig) -> dict:
     """The JAX-layout variables of the Attention-ASPP-UNet ``cfg`` from a
-    flat ``.npz`` archive or a reference ``.pt`` / ``.pth`` state dict (into
-    the seeded ``init_variables(cfg, 0)`` template, non-strict)."""
+    flat ``.npz`` archive, a checkpoint of this package's ``train`` or a
+    reference ``.pt`` / ``.pth`` state dict (into the seeded
+    ``init_variables(cfg, 0)`` template, non-strict)."""
     weights = Path(path)
     if weights.is_dir():
-        raise SystemExit(f"--weights {weights}: a checkpoint directory (the "
-                         "JAX package's Orbax format) is written by training, "
-                         "which is not ported yet (ROADMAP Queue A item 6); "
-                         "export it as a flat .npz")
+        raise SystemExit(f"{weights}: a checkpoint directory (the JAX "
+                         "package's Orbax format) is not read here; export "
+                         "it with the JAX package's train --export_npz and "
+                         "pass the weights.npz")
     if not weights.exists():
         raise SystemExit(f"weights not found: {weights}")
     if weights.suffix == ".npz":
@@ -75,8 +90,14 @@ def load_variables(path, cfg: ModelConfig) -> dict:
         from .utils.convert import init_variables
         from .utils.torch_import import load_torch_checkpoint
         return load_torch_checkpoint(weights, cfg, init_variables(cfg, 0))
-    raise SystemExit(f"--weights {weights}: expected a flat .npz archive or "
-                     "a PyTorch .pt / .pth state dict")
+    from .train.train_loop import read_checkpoint
+    from .utils.convert import checkpoint_variables
+    try:
+        return checkpoint_variables(read_checkpoint(weights)["model"], cfg)
+    except ValueError as err:
+        raise SystemExit(f"{weights}: expected a flat .npz archive, a "
+                         "checkpoint of this package's train or a PyTorch "
+                         f".pt / .pth state dict ({err})") from None
 
 
 def _load_baseline(weights, cfg: Config):
@@ -181,6 +202,84 @@ def cmd_infer_container(args) -> int:
                         debug_frames=not args.no_debug_frames)
 
 
+def cmd_train(args) -> int:
+    from .io import write_json
+    from .train.data import (ArrayDataset, collect_pairs,
+                             positive_only_val_split)
+    from .train.train_loop import fit, read_checkpoint
+    from .utils.convert import checkpoint_variables
+    from .utils.npz_weights import save_npz_variables
+
+    if args.stage == "finetune" and not args.pretrained:
+        raise SystemExit("--pretrained required for --stage finetune")
+    no_clahe = bool(args.no_clahe)
+    cfg = _config(args, train=TrainConfig(
+        seed=args.seed, stage=args.stage, batch_size=args.batch_size,
+        epochs=args.epochs, lr=args.lr,
+        differential_lr=args.differential_lr,
+        loss=LossConfig(edge_weight=0.0 if args.no_edge_loss else args.edge_w,
+                        neg_bce_weight=args.neg_bce_w)))
+    # scout distillation: a lower --img_size and a CLAHE-free enhance chain,
+    # recorded in summary.json so that serving adopts them
+    cfg = dataclasses.replace(
+        cfg,
+        preprocess=dataclasses.replace(
+            cfg.preprocess, img_size=args.img_size,
+            clahe_clip=0.0 if no_clahe else cfg.preprocess.clahe_clip),
+        train=dataclasses.replace(cfg.train, augment=dataclasses.replace(
+            cfg.train.augment, use_clahe=not no_clahe)))
+    imgs, msks = collect_pairs(Path(args.train_dir) / "images",
+                               Path(args.train_dir) / "masks")
+    if args.neg_dir:
+        neg_imgs, _ = collect_pairs(Path(args.neg_dir) / "images", None)
+        imgs += neg_imgs
+        msks += [None] * len(neg_imgs)
+    pos = sum(m is not None for m in msks)
+    print(f"Train samples: pos={pos}, neg={len(msks) - pos}")
+    if args.val_dir:
+        val_imgs, val_msks = collect_pairs(Path(args.val_dir) / "images",
+                                           Path(args.val_dir) / "masks")
+        tr_pair = (imgs, msks)
+    else:
+        tr_pair, (val_imgs, val_msks) = positive_only_val_split(
+            imgs, msks, cfg.train.seed, cfg.train.val_frac)
+    S = cfg.preprocess.img_size
+    train_ds = ArrayDataset.from_paths(*tr_pair, S)
+    val_ds = ArrayDataset.from_paths(val_imgs, val_msks, S)
+
+    init_variables = None
+    if args.stage == "finetune":
+        init_variables = load_variables(args.pretrained, cfg.model)
+        print(f"loaded pretrained {args.pretrained}")
+
+    out = fit(cfg, train_ds, val_ds, Path(args.output_dir),
+              init_variables=init_variables, device=args.device)
+    print(f"best Dice {out['best_dice']:.4f} → {out['best_path']}")
+
+    out_root = Path(args.output_dir)
+    if args.export_npz:
+        # compact f16 weights next to summary.json: the layout predict
+        # --weights and --scout_weights read
+        best = Path(out["best_path"])
+        if not best.exists():
+            raise SystemExit(f"no best checkpoint at {best} to export")
+        save_npz_variables(checkpoint_variables(
+            read_checkpoint(best)["model"], cfg.model),
+            out_root / "weights.npz")
+        print(f"exported {out_root / 'weights.npz'}")
+    # provenance + the serving knobs that the engine adopts from the
+    # summary.json next to a scout's weights (img_size, use_clahe, base_c)
+    write_json(out_root / "summary.json", {
+        "best_val_dice": out["best_dice"],
+        "epochs_run": out["epochs_run"],
+        "img_size": S,
+        "base_c": cfg.model.base_c,
+        "use_clahe": not no_clahe,
+        "stage": cfg.train.stage,
+    }, indent=2)
+    return 0
+
+
 def _common_flags(ap) -> None:
     """The model flags and ``--device``."""
     ap.add_argument("--base_c", type=int, default=48)
@@ -192,8 +291,8 @@ def _common_flags(ap) -> None:
                     help="v2 gates on u4 (>= 4) and u3 (>= 3)")
     ap.add_argument("--gate", choices=["v1", "v2"], default="v1")
     ap.add_argument("--deterministic", action="store_true",
-                    help="reseed the host RNGs (the eval paths draw no "
-                         "random numbers on the device)")
+                    help="reseed the RNGs (with train's --seed, else 2025) "
+                         "and make cuDNN pick deterministic algorithms")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
@@ -266,6 +365,39 @@ def build_parser() -> argparse.ArgumentParser:
                     help="disable hflip TTA")
     _common_flags(ca)
     ca.set_defaults(fn=cmd_calibrate)
+
+    tr = sp.add_parser("train", help="train the model on a directory of "
+                       "PNG images and masks")
+    tr.add_argument("--stage", choices=["main", "finetune"], default="main")
+    tr.add_argument("--seed", type=int, default=2025)
+    tr.add_argument("--train_dir", required=True,
+                    help="holds images/ and masks/ (same file names)")
+    tr.add_argument("--neg_dir", help="holds images/ of negatives (no mask)")
+    tr.add_argument("--val_dir", help="holds images/ and masks/; default: a "
+                    "positive-only 10 %% split of the training pairs")
+    tr.add_argument("--output_dir", default="./checkpoints")
+    tr.add_argument("--pretrained", help="weights to finetune (a flat .npz, "
+                    "a checkpoint of train, or a .pt / .pth state dict)")
+    tr.add_argument("--epochs", type=int, default=120)
+    tr.add_argument("--batch_size", type=int, default=8)
+    tr.add_argument("--lr", type=float, default=3e-4)
+    tr.add_argument("--edge_w", type=float, default=0.05)
+    tr.add_argument("--no_edge_loss", action="store_true",
+                    help="drop the Sobel edge-loss term (same as --edge_w 0)")
+    tr.add_argument("--neg_bce_w", type=float, default=0.05)
+    tr.add_argument("--differential_lr", action="store_true",
+                    help="attention parameters at lr, the backbone at 0.5 lr")
+    tr.add_argument("--img_size", type=int, default=512,
+                    help="network input resolution; lower it to distill a "
+                         "cascade scout (serving reads it from summary.json)")
+    tr.add_argument("--no_clahe", action="store_true",
+                    help="train on a CLAHE-free enhance chain (recorded in "
+                         "summary.json; a scout trained so skips CLAHE)")
+    tr.add_argument("--export_npz", action="store_true",
+                    help="after training, export the best checkpoint as the "
+                         "flat f16 weights.npz in --output_dir")
+    _common_flags(tr)
+    tr.set_defaults(fn=cmd_train)
 
     ic = sp.add_parser("infer-container",
                        help="the Grand-Challenge container contract on the "

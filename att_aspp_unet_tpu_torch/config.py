@@ -1,5 +1,5 @@
 """Configuration of the serving paths (direct, cascade, bulk, ROI container,
-nnU-Net baseline) and of threshold calibration: the fields of
+nnU-Net baseline), of threshold calibration and of training: the fields of
 ``att_aspp_unet_tpu/config.py`` that these paths read, with the same names
 and defaults."""
 
@@ -132,6 +132,62 @@ class ContainerConfig:
 
 
 @dataclass(frozen=True)
+class LossConfig:
+    """Criterion = weighted BCE + Dice (or Tversky) + Sobel edge loss."""
+
+    loss_type: str = "combo"         # "combo" (Dice+BCE) | "tversky"
+    tversky_alpha: float = 0.7
+    tversky_beta: float = 0.3
+    dice_smooth: float = 1.0
+    edge_weight: float = 0.05
+    neg_bce_weight: float = 0.05     # finetune-only empty-mask down-weight
+
+
+@dataclass(frozen=True)
+class AugmentConfig:
+    """Training augmentation on the device: hflip, affine, gamma,
+    brightness/contrast, elastic, then the deterministic CLAHE + median-3
+    tail (``use_clahe=False`` trains on unequalised input, for a scout whose
+    serving tier skips CLAHE)."""
+
+    hflip_p: float = 0.5
+    affine_p: float = 0.7
+    scale_range: Tuple[float, float] = (0.92, 1.08)
+    rotate_deg: float = 7.0
+    translate_frac: float = 0.02
+    gamma_p: float = 0.3
+    gamma_range: Tuple[float, float] = (0.8, 1.2)
+    brightness_contrast_p: float = 0.3
+    brightness_limit: float = 0.1
+    contrast_limit: float = 0.1
+    elastic_p: float = 0.25
+    elastic_alpha: float = 8.0
+    elastic_sigma: float = 3.0
+    use_clahe: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Two-stage (main -> finetune) training: batch 8, 120 epochs, lr 3e-4,
+    AdamW wd 5e-4, 5 % linear warmup (in epochs) -> cosine, global-norm clip
+    1.0, early-stop patience 15, seed 2025."""
+
+    seed: int = 2025
+    stage: str = "main"              # "main" | "finetune"
+    batch_size: int = 8
+    epochs: int = 120
+    lr: float = 3e-4
+    weight_decay: float = 5e-4
+    grad_clip: float = 1.0
+    warmup_frac: float = 0.05        # no warmup in the finetune stage
+    early_stop_patience: int = 15
+    val_frac: float = 0.1            # positive-only fallback split
+    differential_lr: bool = False    # attention params at lr, backbone 0.5x
+    loss: LossConfig = field(default_factory=LossConfig)
+    augment: AugmentConfig = field(default_factory=AugmentConfig)
+
+
+@dataclass(frozen=True)
 class Config:
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -139,3 +195,4 @@ class Config:
     predict: PredictConfig = field(default_factory=PredictConfig)
     calibrate: CalibrateConfig = field(default_factory=CalibrateConfig)
     container: ContainerConfig = field(default_factory=ContainerConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)

@@ -9,6 +9,7 @@ semantics and border modes:
 - ``resize_bilinear``      ~ ``cv2.resize(INTER_LINEAR)`` (half-pixel centers)
 - ``resize_nearest``       ~ ``jax.image.resize(method="nearest")``
 - ``bin_counts``           ~ ``np.bincount(minlength=...)``
+- ``sobel_gradients``      ~ the reference EdgeLoss's zero-padded Sobel pair
 """
 
 from __future__ import annotations
@@ -154,3 +155,23 @@ def bin_counts(idx: torch.Tensor, n_bins: int) -> torch.Tensor:
     if flat.is_cuda:
         return torch.histc(flat, bins=n_bins, min=0, max=n_bins)
     return torch.bincount(flat[flat >= 0], minlength=n_bins)
+
+
+_SOBEL_X = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
+_SOBEL_Y = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
+
+
+def sobel_gradients(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """3x3 Sobel gradient pair (gx, gy) in f32 with zero padding, on
+    ``(..., H, W)`` inputs: the reference EdgeLoss's ``F.conv2d(p, k,
+    padding=1)``, summed tap by tap in the JAX package's order."""
+    lead = x.shape[:-2]
+    H, W = x.shape[-2], x.shape[-1]
+    xp = F.pad(x.to(torch.float32).reshape((-1, H, W)), (1, 1, 1, 1))
+
+    def corr(k):
+        return sum(k[i][j] * xp[:, i:i + H, j:j + W]
+                   for i in range(3) for j in range(3))
+
+    return (corr(_SOBEL_X).reshape(lead + (H, W)),
+            corr(_SOBEL_Y).reshape(lead + (H, W)))

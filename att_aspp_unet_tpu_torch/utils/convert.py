@@ -15,6 +15,12 @@ converted to numpy) and builds the port's :class:`AttentionASPPUNet`:
   ungated levels, ASPP or ``bridge_conv``); subtrees the variant does not
   use are ignored, as flax's ``apply`` ignores them.
 
+``jax_variables_to_train_model`` and ``train_model_to_jax_variables`` carry
+the same tree to and from the trainable ``AttentionASPPUNetTrain``, whose
+state-dict keys are the flax paths joined by dots: a transpose per leaf
+(HWIO -> OIHW; the transposed conv's kernel flipped into PyTorch's (in, out,
+kh, kw)), exact both ways.
+
 ``init_variables`` draws a seeded variables tree in the JAX layout for any
 variant (the template of non-strict ``.pt`` import, and the weights of runs
 that have no checkpoint).
@@ -36,6 +42,7 @@ import torch
 
 from ..config import ModelConfig, PlainUNetConfig
 from ..models.att_aspp_unet import AttentionASPPUNet, gated
+from ..models.att_aspp_unet_train import AttentionASPPUNetTrain
 from ..models.plain_unet import PlainConvUNet
 from ..ops.kernels.fused_conv import fold_batchnorm, pack_conv_weight
 
@@ -205,6 +212,85 @@ def jax_variables_to_torch(variables_np: Dict, cfg: ModelConfig = ModelConfig(),
           for k, v in torch_state_dict(variables_np, cfg).items()}
     model.load_state_dict(sd, strict=True)
     return model.eval()
+
+
+def _leaf_to_torch(path: Tuple[str, ...], a: np.ndarray) -> np.ndarray:
+    """A flax leaf in the train model's layout."""
+    if path[-1] == "kernel" and a.ndim == 4:
+        if path[-2] == "up":                       # ConvTranspose
+            return a[::-1, ::-1].transpose(2, 3, 0, 1)
+        return a.transpose(3, 2, 0, 1)             # HWIO -> OIHW
+    return a
+
+
+def _leaf_to_jax(path: Tuple[str, ...], a: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_leaf_to_torch`."""
+    if path[-1] == "kernel" and a.ndim == 4:
+        if path[-2] == "up":
+            return a.transpose(2, 3, 0, 1)[::-1, ::-1]
+        return a.transpose(2, 3, 1, 0)
+    return a
+
+
+def jax_variables_to_train_model(variables_np: Dict, cfg: ModelConfig,
+                                 device="cpu") -> AttentionASPPUNetTrain:
+    """The trainable model of the variant ``cfg`` on ``device`` holding the
+    flax ``params`` + ``batch_stats`` tree (nested numpy); subtrees the
+    variant does not use are ignored, as flax's ``apply`` ignores them."""
+    model = AttentionASPPUNetTrain(cfg, device=device)
+    sd = {}
+    for coll, path, shape in _variable_layout(cfg):
+        node = variables_np[coll]
+        for key in path:
+            node = node[key]
+        a = np.array(node, np.float32)             # a writable copy
+        if a.shape != shape:
+            raise ValueError(f"{coll}/{'/'.join(path)}: shape {a.shape}, the "
+                             f"variant has {shape}")
+        sd[".".join(path)] = torch.from_numpy(
+            np.ascontiguousarray(_leaf_to_torch(path, a)))
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def torch_tensors_to_jax(named: Dict[str, torch.Tensor],
+                         cfg: ModelConfig) -> Dict:
+    """Named tensors of the train model (its state dict, or gradients keyed
+    by parameter name) -> the nested ``{"params", "batch_stats"}`` numpy tree
+    in the JAX layout; collections without a tensor are left empty."""
+    out: Dict = {"params": {}, "batch_stats": {}}
+    for coll, path, _ in _variable_layout(cfg):
+        t = named.get(".".join(path))
+        if t is None:
+            continue
+        node = out[coll]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        a = t.detach().to("cpu", torch.float32).numpy()
+        node[path[-1]] = np.ascontiguousarray(_leaf_to_jax(path, a))
+    return out
+
+
+def checkpoint_variables(state_dict: Dict[str, torch.Tensor],
+                         cfg: ModelConfig) -> Dict:
+    """The JAX-layout variables of the variant ``cfg`` from a train model's
+    state dict (a checkpoint's ``model``); ValueError when the checkpoint
+    lacks a leaf of that variant."""
+    for _, path, shape in _variable_layout(cfg):
+        t = state_dict.get(".".join(path))
+        got = None if t is None else _leaf_to_jax(path, t.cpu().numpy()).shape
+        if got != shape:
+            raise ValueError(f"{'.'.join(path)}: {got or 'missing'} in the "
+                             f"checkpoint, the configured variant has "
+                             f"{shape}; check --base_c, --gate, --no_att, "
+                             "--no_aspp, --att_depth")
+    return torch_tensors_to_jax(state_dict, cfg)
+
+
+def train_model_to_jax_variables(model: AttentionASPPUNetTrain) -> Dict:
+    """The flax ``params`` + ``batch_stats`` tree (nested numpy f32) of a
+    train model: the inverse of :func:`jax_variables_to_train_model`."""
+    return torch_tensors_to_jax(model.state_dict(), model.cfg)
 
 
 def plain_unet_state_dict(variables: Dict,

@@ -19,8 +19,9 @@ Phases (any failure exits non-zero and prints no result line):
    frames that the cascade, the bulk path and the container enhance, on the
    sweep at 256 x 256 and 128 x 128 (a scout's CLAHE: tiles of 32 x 32 and
    16 x 16 pixels), on the whole 840 x 562 x 744 case (the baseline), on one
-   native frame (a PNG) and on the calibrate phase's 16 x 562 x 744 and
-   16 x 480 x 640 groups — and time
+   native frame (a PNG), on the calibrate phase's 16 x 562 x 744 and
+   16 x 480 x 640 groups and on the train steps' 8 x 512 x 512 and
+   4 x 128 x 128 batches — and time
    kernel, plain version and a library yardstick (for K1 cuDNN's
    bf16 convolutions on channel-last and on contiguous tensors; the faster
    sum is ``library_ms``);
@@ -67,7 +68,21 @@ Phases (any failure exits non-zero and prints no result line):
    --weights_noatt`` (a seeded no-attention model), card and CPU: equal masks
    and AC rows, panels written; ``--slice_metrics --topk_viz`` on the
    140-frame sweep on the card, and on 6 of its frames on the card and on
-   the CPU: equal per-slice CSVs.
+   the CPU: equal per-slice CSVs;
+11. train: card against CPU at base_c 8, 128 x 128, batch 4 (the augmented
+   batch equal; an f64 step's gradients within 1e-4 of each leaf's
+   max-abs; an exact-f32 step's loss within 1e-4 relative and its gradients
+   within 1e-3 of each leaf's max-abs beyond the CPU's own f32 error; the
+   bf16 loss within 2e-2);
+   ``cli train`` at full width (base_c 48, 512 x 512, batch 8) on 32
+   synthetic PNG pairs with a val dir: 2 epochs with ``--export_npz``, a
+   resumed third, one ``--stage finetune`` epoch from the repo's trained
+   weights, one ``--differential_lr`` finetune epoch from the port's own
+   checkpoint, K2 launched once per train step and val batch; 20 steps on a
+   fixed batch (the loss falls; ms per step, images/s, TFLOP/s, peak
+   memory); ``cli predict --weights`` with the finetuned export on the
+   140-frame sweep (the direct path's output checks, 72 K1 launches), and a
+   one-epoch 128-px no-CLAHE scout driving ``predict --cascade``.
 
 Every path is driven with the launch counters at zero and must have launched
 the kernels it runs.  The line before the last is a JSON object with one
@@ -279,8 +294,9 @@ def k2_stacks(dev, sweeps, val):
     four, the container's 128 subsampled frames of the 840-frame case, the
     sweep at the sizes of the scouts (256 px: the scout that was trained
     with CLAHE; 128 px: tiles of 16 x 16 pixels), the whole 840-frame case
-    at native size (the baseline), one native frame (a PNG input) and the
-    calibrate phase's two resolution groups."""
+    at native size (the baseline), one native frame (a PNG input), the
+    calibrate phase's two resolution groups and the batches of a train step
+    (8 frames at 512 x 512; 4 at 128 x 128, the card-against-CPU step)."""
     import numpy as np
     import torch
 
@@ -302,7 +318,8 @@ def k2_stacks(dev, sweeps, val):
             "roi": u8(case[idxs]), "scout": low(256), "scout128": low(128),
             "baseline": u8(case), "png": u8(sweeps[0][mid:mid + 1]),
             **{"calibrate_{}x{}".format(*g[0].shape[1:]): u8(g[0])
-               for g in val}}
+               for g in val},
+            "train": low(512)[mid:mid + 8], "train128": low(128)[:4]}
 
 
 def phase_k2(dev, sweeps, val):
@@ -1535,6 +1552,288 @@ def phase_png(dev, sweep, best_true, thr, tmp):
     return launches
 
 
+# the [train] phase's data: (seed, positives, negatives) of the synthetic
+# train and val PNG pairs at the CLI's 512 x 512 (tools/synthetic.make_dataset)
+TRAIN_SET, VAL_SET = (20, 28, 4), (21, 7, 1)
+TRAIN_SIZE, TRAIN_BATCH = 512, 8
+
+
+def att_aspp_flops(base_c: int, size: int) -> float:
+    """2 x multiply-adds of one v1 Attention-ASPP-UNet forward over a
+    ``size`` x ``size`` frame: the encoder pairs, the ASPP (1x1, three 3x3
+    dilated with all nine taps, the pooled 1x1, the projection), per decoder
+    level the transposed conv, the v1 gate, the pair, and the 1x1 head."""
+    px = {lvl: (size >> (lvl - 1)) ** 2 for lvl in range(1, 6)}
+    w = {1: base_c, 2: 2 * base_c, 3: 4 * base_c, 4: 8 * base_c}
+    total, cin = 0.0, 1
+    for lvl in (1, 2, 3, 4):
+        total += 2 * 9 * (cin * w[lvl] + w[lvl] * w[lvl]) * px[lvl]
+        cin = w[lvl]
+    f = 16 * base_c
+    total += 2 * px[5] * 8 * base_c * f * (1 + 9 * 3) + 2 * 8 * base_c * f \
+        + 2 * px[5] * 5 * f * f
+    g = f
+    for lvl in (4, 3, 2, 1):
+        c = w[lvl]
+        total += 2 * px[lvl] * g * c
+        if lvl >= 2:
+            total += 2 * px[lvl] * (2 * c * (c // 2) + c // 2)
+        total += 2 * 9 * px[lvl] * 3 * c * c
+        g = c
+    return total + 2 * px[1] * base_c
+
+
+def make_train_set(seed: int, n_pos: int, n_neg: int):
+    from att_aspp_unet_tpu_torch.tools.synthetic import make_dataset
+
+    return make_dataset(n_pos, n_neg, TRAIN_SIZE, seed=seed)
+
+
+def write_pairs(root: Path, imgs, msks) -> None:
+    from att_aspp_unet_tpu_torch.io import write_gray_png
+
+    for i, (im, m) in enumerate(zip(imgs, msks)):
+        write_gray_png(root / "images" / f"s{i:03d}.png", im)
+        write_gray_png(root / "masks" / f"s{i:03d}.png", m)
+
+
+def phase_train_parity(dev, imgs, msks):
+    """One train step at base_c 8, 128 x 128, batch 4, ASPP dropout 0, from
+    the same seeded init and the same CPU-drawn augmentation, on the card and
+    on the CPU: the augmented batch equal (K2 against the plain CLAHE blend);
+    the model in f64 (the loss stays f32), card against CPU: gradients within
+    1e-4 of each leaf's max-abs (the same function); in exact f32 the loss
+    within 1e-4 relative and each leaf's gradient within 1e-3 of its max-abs
+    of the CPU's, beyond twice the CPU's own f32 error against f64 on that
+    leaf (a BN before another train-mode BN has per-channel sums that nearly
+    cancel: f32 gets them to ~1e-2 on either device); the bf16 loss within
+    2e-2 of the f32 one."""
+    import dataclasses
+
+    import torch
+
+    from att_aspp_unet_tpu_torch.config import (Config, ModelConfig,
+                                                TrainConfig)
+    from att_aspp_unet_tpu_torch.ops.image import resize_bilinear
+    from att_aspp_unet_tpu_torch.train.augment import (augment_batch,
+                                                       sample_params)
+    from att_aspp_unet_tpu_torch.train.train_loop import (create_train_state,
+                                                          loss_and_grads)
+
+    t = torch.as_tensor(imgs[:4]).float()
+    u8 = resize_bilinear(t, (128, 128)).round().clamp(0, 255).to(torch.uint8)
+    m8 = torch.nn.functional.interpolate(
+        torch.as_tensor(msks[:4]).float()[:, None], size=(128, 128),
+        mode="nearest")[:, 0].to(torch.uint8)
+    cfg = Config(model=ModelConfig(base_c=8, compute_dtype="float32",
+                                   aspp_dropout=0.0),
+                 train=TrainConfig(batch_size=4, seed=SEED))
+    params = sample_params(torch.Generator().manual_seed(SEED), 4, 128, 128,
+                           cfg.train.augment)
+
+    def step(where, dtype):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype=dtype))
+        x, y = augment_batch(u8.to(where), m8.to(where), c.train.augment,
+                             params)
+        state = create_train_state(c.model, c.train, 1, where)
+        loss, _, grads = loss_and_grads(state, c, x, y)
+        return (x.cpu(), y.cpu(), float(loss.detach()),
+                {n: g.double().cpu() for n, g in zip(state.opt.names, grads)})
+
+    run = {(w, d): step(w, d) for w in ("cpu", dev)
+           for d in ("float32", "float64")}
+    xc, yc, lc, gc = run["cpu", "float32"]
+    xd, yd, ld, gd = run[dev, "float32"]
+    if not all(torch.equal(a, b) for a, b in [(xc, xd), (yc, yd)]
+               + [(xc, run[k][0]) for k in run]):
+        raise AssertionError(
+            f"train: the augmented batch differs on the card: "
+            f"{int((xc != xd).sum())} image and {int((yc != yd).sum())} mask "
+            "values")
+
+    def worst(got, want):
+        errs = sorted(((float((got[n] - want[n]).abs().max())
+                        / max(float(want[n].abs().max()), 1e-30), n)
+                       for n in want), reverse=True)
+        return errs
+
+    g64 = run["cpu", "float64"][3]
+    e64 = worst(run[dev, "float64"][3], g64)
+    e_card, e_cpu, e_pair = worst(gd, g64), worst(gc, g64), worst(gd, gc)
+    cpu_err = {n: e for e, n in e_cpu}
+    excess = sorted(((e - 2 * cpu_err[n], n) for e, n in e_pair),
+                    reverse=True)
+    rel = abs(ld - lc) / abs(lc)
+    cfg16 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="bfloat16"))
+    x, y = augment_batch(u8.to(dev), m8.to(dev), cfg16.train.augment, params)
+    state = create_train_state(cfg16.model, cfg16.train, 1, dev)
+    l16 = float(loss_and_grads(state, cfg16, x, y)[0].detach())
+    rel16 = abs(l16 - lc) / abs(lc)
+
+    def top(errs):
+        return ", ".join(f"{n} {e:.2e}" for e, n in errs[:4])
+
+    log(f"[train] card vs CPU, base_c 8, 128^2, batch 4: augmented batch "
+        f"equal; exact-f32 step loss card {ld:.7f} CPU {lc:.7f} (rel "
+        f"{rel:.2e}, tolerance 1e-4), bf16 loss {l16:.6f} (rel {rel16:.2e} "
+        f"of f32, tolerance 2e-2); gradients, max |diff| / leaf max-abs: f64 "
+        f"card vs CPU {e64[0][0]:.2e} at {e64[0][1]} (tolerance 1e-4); f32 "
+        f"card vs f32 CPU [{top(e_pair)}], beyond twice the CPU's f32 error "
+        f"at most {excess[0][0]:.2e} at {excess[0][1]} (tolerance 1e-3); f32 "
+        f"card vs f64 [{top(e_card)}], f32 CPU vs f64 [{top(e_cpu)}]")
+    if (rel > 1e-4 or rel16 > 2e-2 or e64[0][0] > 1e-4
+            or excess[0][0] > 1e-3):
+        raise AssertionError("train: the card's step disagrees with the CPU")
+
+
+def phase_train(dev, sweep, best_true, thr, tmp, train_set, val_set):
+    """``cli train`` at full width on synthetic PNG pairs (main, resume,
+    finetune from the repo's weights, differential learning rate from the
+    port's checkpoint), 20 steps on a fixed batch, then the finetuned export
+    served by ``cli predict`` and a one-epoch scout driving the cascade."""
+    import numpy as np
+    import torch
+
+    from att_aspp_unet_tpu_torch.config import (Config, ModelConfig,
+                                                TrainConfig)
+    from att_aspp_unet_tpu_torch.io import read_mha
+    from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as ci
+    from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as fc
+    from att_aspp_unet_tpu_torch.train.augment import sample_params
+    from att_aspp_unet_tpu_torch.train.train_loop import (create_train_state,
+                                                          train_step)
+
+    phase_train_parity(dev, *train_set)
+    tr, va = tmp / "train_pngs", tmp / "val_pngs"
+    write_pairs(tr, *train_set)
+    write_pairs(va, *val_set)
+    n_tr, n_va = len(train_set[0]), len(val_set[0])
+    per_epoch = n_tr // TRAIN_BATCH + -(-n_va // TRAIN_BATCH)
+    base = ["train", "--train_dir", str(tr), "--val_dir", str(va),
+            "--base_c", str(BASE_C), "--img_size", str(TRAIN_SIZE),
+            "--batch_size", str(TRAIN_BATCH), "--device", dev]
+    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+
+    def train_cli(label, out, epochs_run, *extra):
+        """A ``cli train`` call; K2 once per train step and val batch."""
+        wall, launches, text = run_cli(
+            base + ["--output_dir", str(out), *extra], f"train {label}",
+            (0, epochs_run * per_epoch))
+        for k, v in launches.items():
+            totals[k] += v
+        epochs = [ln for ln in text.splitlines() if ln.startswith("epoch")]
+        log(f"[train] cli train {label}: {wall:.2f} s, kernel launches "
+            f"{launches}; " + "; ".join(epochs))
+        return text
+
+    main_out = tmp / "train_main"
+    train_cli("main, 2 epochs", main_out, 2, "--epochs", "2", "--export_npz")
+    text = train_cli("resumed to 3 epochs", main_out, 1, "--epochs", "3",
+                     "--export_npz")
+    with open(main_out / "ckpt_main/metrics.csv", newline="") as f:
+        rows = list(csv.reader(f))
+    if "resumed from" not in text or [r[0] for r in rows[1:]] != \
+            ["1", "2", "3"]:
+        raise AssertionError(f"train: resume failed: {rows}")
+    ft_out = tmp / "train_finetune"
+    train_cli("--stage finetune from the repo's weights", ft_out, 1,
+              "--stage", "finetune", "--pretrained", str(REPO / MAIN_WEIGHTS),
+              "--epochs", "1", "--export_npz")
+    train_cli("--stage finetune --differential_lr from the port's "
+              "checkpoint", tmp / "train_dlr", 1, "--stage", "finetune",
+              "--pretrained", str(main_out / "ckpt_main/best"),
+              "--differential_lr", "--epochs", "1")
+
+    # 20 steps on one fixed batch (one augmentation draw) from the seeded
+    # init, the warmup of a 20-step epoch: the loss must fall
+    cfg = Config(model=ModelConfig(base_c=BASE_C),
+                 train=TrainConfig(batch_size=TRAIN_BATCH, epochs=1))
+    state = create_train_state(cfg.model, cfg.train, 20, dev)
+    imgs, msks = (torch.as_tensor(a[:TRAIN_BATCH]).to(dev) for a in train_set)
+    params = sample_params(torch.Generator().manual_seed(SEED), TRAIN_BATCH,
+                           TRAIN_SIZE, TRAIN_SIZE, cfg.train.augment)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    metrics, times = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        metrics.append(train_step(state, cfg, imgs, msks, aug_params=params))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_launches("train 20 steps", (0, 20))
+    for k, v in launches.items():
+        totals[k] += v
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(metrics)[:, 0].tolist()
+    step_ms = 1e3 * statistics.median(times[3:])
+    flops = 3 * att_aspp_flops(BASE_C, TRAIN_SIZE) * TRAIN_BATCH
+    log(f"[train] 20 steps, base_c {BASE_C}, {TRAIN_SIZE}^2, batch "
+        f"{TRAIN_BATCH}, bf16: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(first five {np.mean(losses[:5]):.4f}, last five "
+        f"{np.mean(losses[-5:]):.4f}); median {step_ms:.2f} ms per step "
+        f"after 3 warm-up steps (min {1e3 * min(times[3:]):.2f}, first "
+        f"{1e3 * times[0]:.1f}) = {1e3 * TRAIN_BATCH / step_ms:.1f} images/s, "
+        f"{flops / step_ms / 1e9:.1f} TFLOP/s at 3 x "
+        f"{att_aspp_flops(BASE_C, TRAIN_SIZE) / 1e9:.2f} GFLOP per frame "
+        f"({100 * flops / step_ms / 1e-3 / PEAK_BF16_FLOPS:.1f} % of the bf16 "
+        f"peak), peak memory {peak:.2f} GiB; kernel launches {launches}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    del state, imgs, msks, metrics
+    torch.cuda.empty_cache()
+
+    # serve what was trained: the finetuned export on the 140-frame sweep
+    out = tmp / "out_trained"
+    wall, launches, _ = run_cli(
+        ["predict", "--weights", str(ft_out / "weights.npz"), "--base_c",
+         str(BASE_C), "--input_dir", str(tmp / "in140"), "--out_dir",
+         str(out), "--thr", str(thr), "--device", dev],
+        "train predict", (forward_launches(sweep.shape[0], 16), 1))
+    for k, v in launches.items():
+        totals[k] += v
+    frame, ac = check_case_output(out, "sweep_0", sweep.shape,
+                                  abdomen_frames(sweep.shape[0], best_true),
+                                  "train predict")
+    log(f"[train] cli predict --weights <finetuned export>: {wall:.2f} s, "
+        f"frame {frame} (generator's best {best_true}), AC {ac} mm, kernel "
+        f"launches {launches}")
+
+    # a one-epoch scout (128 px, base_c 16, no CLAHE: no K2 in its steps)
+    # ranks the cascade's tier 1
+    scout = tmp / "train_scout"
+    wall, _, text = run_cli(
+        base + ["--output_dir", str(scout), "--img_size", "128", "--base_c",
+                "16", "--no_clahe", "--epochs", "1", "--export_npz"],
+        # (argparse keeps the last --img_size / --base_c)
+        "train scout", count=False)
+    if fc.fused_double_cbr.launches or ci.clahe_interp.launches:
+        raise AssertionError("train scout: a kernel launched where the path "
+                             "runs none")
+    log(f"[train] cli train --img_size 128 --base_c 16 --no_clahe, 1 epoch: "
+        f"{wall:.2f} s, no kernel launches (no CLAHE, no K1 in training)")
+    out = tmp / "out_trained_cascade"
+    wall, launches, _ = run_cli(
+        ["predict", "--weights", str(ft_out / "weights.npz"), "--base_c",
+         str(BASE_C), "--input_dir", str(tmp / "in140"), "--out_dir",
+         str(out), "--thr", str(thr), "--device", dev, "--cascade",
+         "--scout_weights", str(scout / "weights.npz")],
+        "train cascade", cascade_launches(sweep.shape[0], 8, 16))
+    for k, v in launches.items():
+        totals[k] += v
+    arr = read_mha(out / "sweep_0" /
+                   "images/fetal-abdomen-segmentation/output.mha").array
+    if arr.shape != sweep.shape or not set(np.unique(arr)) <= {0, 2}:
+        raise AssertionError("train cascade: malformed output")
+    log(f"[train] cli predict --cascade --scout_weights <one-epoch scout>: "
+        f"{wall:.2f} s, output {arr.shape}, mask on frames "
+        f"{np.flatnonzero(arr.reshape(len(arr), -1).any(1)).tolist()}, "
+        f"kernel launches {launches}")
+    return totals
+
+
 def make_seeded_sweep(seed: int):
     from att_aspp_unet_tpu_torch.tools.synthetic import make_sweep
 
@@ -1569,11 +1868,14 @@ def main() -> int:
         futures = [pool.submit(make_seeded_sweep, SEED + k)
                    for k in range(N_SWEEPS)]
         val_futures = [pool.submit(make_val_group, *g) for g in VAL_GROUPS]
+        train_futures = [pool.submit(make_train_set, *t)
+                         for t in (TRAIN_SET, VAL_SET)]
         phase_build()
         k1 = phase_k1(dev, ("main", "scout", "roi"))
         t0 = time.perf_counter()
         made = [f.result() for f in futures]
         val = [f.result() for f in val_futures]
+        train_sets = [f.result() for f in train_futures]
     # the launches of a few frames after the generators are done: with the
     # host's cores busy, the gaps between short launches would be timed
     phase_k1(dev, ("png", "psi", "variants"), k1)
@@ -1612,6 +1914,8 @@ def main() -> int:
                         for i in abdomen_frames(N_FRAMES, b)]
         add(phase_container(dev, case, abdomen_case, variables, tmp))
         add(phase_baseline(dev, sweeps[0], case, tmp))
+        torch.cuda.empty_cache()
+        add(phase_train(dev, sweeps[0], bests[0], thr, tmp, *train_sets))
     k1["launches"] = totals["fused_double_cbr"]
     k2["launches"] = totals["clahe_interp"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -51,6 +51,7 @@ from att_aspp_unet_tpu_torch.utils.convert import jax_plain_unet_to_torch
 from att_aspp_unet_tpu_torch.utils.npz_weights import load_npz_variables
 
 from .test_nnunet_import import _NNUNetOracle, _rename
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(base_c=4, max_c=16, n_stages=3, patch_size=(32, 32))
 PLAN_DIR = (Path(__file__).resolve().parents[1] / "resources/nnUNet_results/"

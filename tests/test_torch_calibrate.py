@@ -32,6 +32,7 @@ from att_aspp_unet_tpu_torch.io import (MetaImage, read_gray_png, read_json,
                                         read_mha, write_gray_png, write_mha)
 
 from .test_torch_variants import gap_threshold, random_variant_variables
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 IMG, BASE_C = 64, 4
 
@@ -169,7 +170,7 @@ def test_calibrate_cli_reads_npz_and_pt(val_set, tmp_path):
     lib = tcal.calibrate(Config(model=mcfg), variables, val_set,
                          tmp_path / "lib", device="cpu", log=lambda *a: None)
     assert read_json(tmp_path / "npz/thr.json")["best_thr"] == lib["best_thr"]
-    with pytest.raises(SystemExit, match="item 6"):
+    with pytest.raises(SystemExit, match="--export_npz"):
         cli.main(base + ["--weights", str(tmp_path)] + flags)
 
 

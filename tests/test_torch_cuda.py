@@ -6,6 +6,8 @@ where only PyTorch is installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -186,12 +188,14 @@ def test_clahe_interp_kernel_bit_exact(rng, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 562, 744), (64, 128, 128),
-                                   (140, 256, 256), (840, 562, 744)])
+                                   (140, 256, 256), (840, 562, 744),
+                                   (8, 512, 512)])
 def test_clahe_kernel_bit_exact_on_serving_stacks(rng, cuda_device, shape):
     """K2 through CLAHE's own tables: the 8 promoted frames of a cascade at
     native size, stacks at the scouts' sizes, where a CLAHE tile is 16x16
-    (128 px) or 32x32 pixels (256 px), and the baseline's whole 840-frame
-    case at native size."""
+    (128 px) or 32x32 pixels (256 px), the baseline's whole 840-frame case at
+    native size, and a train step's batch at the CLI's defaults (8 frames at
+    512 x 512)."""
     from att_aspp_unet_tpu_torch.ops.clahe import clahe_finish, clahe_tables
 
     u8 = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8)) \
@@ -331,3 +335,50 @@ def _bn_leaves(tree):
         return
     for sub in tree.values():
         yield from _bn_leaves(sub)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(rng, cuda_device):
+    """One exact-f32 train step of the base_c 4 model on 4 frames at 64 x 64
+    from the same seeded init and the same CPU-drawn augmentation: the
+    augmented batch equal (K2 launched once), the loss within 1e-4 relative,
+    every gradient within 1e-3 of its leaf's max-abs of the CPU's beyond
+    twice the CPU's own f32 error against its f64 step (some leaves are sums
+    that nearly cancel; f32 gets them to ~1e-2 on either device)."""
+    from att_aspp_unet_tpu_torch.config import Config, ModelConfig
+    from att_aspp_unet_tpu_torch.train.augment import (augment_batch,
+                                                       sample_params)
+    from att_aspp_unet_tpu_torch.train.train_loop import (create_train_state,
+                                                          loss_and_grads)
+
+    cfg = Config(model=ModelConfig(base_c=4, compute_dtype="float32",
+                                   aspp_dropout=0.0))
+    imgs = torch.from_numpy(rng.integers(0, 256, (4, 64, 64)).astype(np.uint8))
+    msks = torch.zeros((4, 64, 64), dtype=torch.uint8)
+    msks[:, 20:40, 16:44] = 255
+    params = sample_params(torch.Generator().manual_seed(0), 4, 64, 64,
+                           cfg.train.augment)
+    out = {}
+    for dev, dtype in (("cpu", "float64"), ("cpu", "float32"),
+                       (cuda_device, "float32")):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype=dtype))
+        before = tci.clahe_interp.launches
+        x, y = augment_batch(imgs.to(dev), msks.to(dev), c.train.augment,
+                             params)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tci.clahe_interp.launches == before + 1
+        state = create_train_state(c.model, c.train, 1, dev)
+        loss, _, grads = loss_and_grads(state, c, x, y)
+        out[str(dev), dtype] = (x.cpu(), y.cpu(), float(loss.detach()),
+                                [g.double().cpu() for g in grads])
+    g64 = out["cpu", "float64"][3]
+    (xc, yc, lc, gc), (xd, yd, ld, gd) = out["cpu", "float32"], \
+        out[str(cuda_device), "float32"]
+    assert torch.equal(xc, xd) and torch.equal(yc, yd)
+    assert abs(ld - lc) <= 1e-4 * abs(lc)
+    for a, b, r in zip(gd, gc, g64):
+        scale = float(r.abs().max())
+        own = float((b - r).abs().max())
+        assert float((a - b).abs().max()) <= 1e-3 * scale + 2 * own

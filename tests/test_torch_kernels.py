@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from att_aspp_unet_tpu.ops.pallas import fused_conv as jfc
 from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as tfc
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _pair_case(rng, N, cin, cmid, cout, H, W):

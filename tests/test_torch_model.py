@@ -17,6 +17,7 @@ from att_aspp_unet_tpu.models import AttentionASPPUNet as JModel
 from att_aspp_unet_tpu_torch.config import ModelConfig
 from att_aspp_unet_tpu_torch.utils.convert import jax_variables_to_torch
 from att_aspp_unet_tpu_torch.utils.npz_weights import load_npz_variables
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 WEIGHTS = Path(__file__).resolve().parents[1] / "resources/synthetic/weights.npz"
 

@@ -18,6 +18,7 @@ from att_aspp_unet_tpu_torch.ops import image as timage
 from att_aspp_unet_tpu_torch.ops.kernels.clahe_interp import (
     clahe_interp, clahe_interp_batched, clahe_interp_reference)
 from att_aspp_unet_tpu_torch.preprocess import enhance as tenhance
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 # ``att_aspp_unet_tpu.ops.clahe`` the attribute is the function; the module:
 jclahe = importlib.import_module("att_aspp_unet_tpu.ops.clahe")

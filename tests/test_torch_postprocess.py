@@ -23,6 +23,7 @@ from att_aspp_unet_tpu_torch.postprocess import refine as trefine
 from att_aspp_unet_tpu_torch.postprocess import select as tselect
 from att_aspp_unet_tpu_torch.postprocess.select import \
     select_best_frame_exact as t_select
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _blobs(rng, n, h, w, density=0.55):

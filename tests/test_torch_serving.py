@@ -40,6 +40,7 @@ from att_aspp_unet_tpu_torch.models import PlainConvUNet
 from att_aspp_unet_tpu_torch.preprocess import roi as troi
 
 from .test_torch_model import random_variables
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 IMG, LOW = 64, 32
 N, H, W = 10, 96, 128

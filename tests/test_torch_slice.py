@@ -24,6 +24,7 @@ from att_aspp_unet_tpu_torch.io import MetaImage, read_json, read_mha, \
     write_mha
 
 from .test_torch_model import random_variables
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 IMG = 64

@@ -28,6 +28,7 @@ from att_aspp_unet_tpu_torch.utils.convert import (init_variables,
                                                    jax_variables_to_torch)
 
 from . import torch_ref
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 # (gate, use_att, use_aspp, att_depth)
 VARIANTS = [("v2", True, True, 4), ("v2", True, True, 3),
