@@ -43,7 +43,21 @@ comes from ``--plans`` / ``--dataset-json`` (nnU-Net's ``plans.json`` and
 ``dataset.json``), its weights from an nnU-Net ``.pth`` / ``.pt`` checkpoint
 or the JAX package's flat ``.npz``; without ``--weights`` it runs on the
 initialisation of seed 0, to exercise the contract.  ``att_aspp`` needs
-``--weights``.
+``--weights``.  ``python -m att_aspp_unet_tpu_torch.inference`` runs the same
+contract driven by the environment alone (``WEIGHTS``, ``MODEL_TAG``,
+``PLANS``, ``DATASET_JSON``, ``CASE_ID``, ``DEVICE``).
+
+The offline tools take the JAX package's flags, defaults and exit codes and
+need no card: ``eval-seg`` (Dice / IoU / HD95 of a new and a baseline model
+against GT masks, ``seg_eval.csv``), ``eval-ac`` (AC agreement of two
+``ac_results.csv`` with a per-sweep GT table; ``--fps`` frames per sweep),
+``vis-errors`` (overlays of the worst ΔDice cases), ``convert`` (``.mha``
+volume pairs to PNG frames with negative sampling), ``split`` (seeded
+train / val split), ``leak-check`` (exit 1 when a file is in both sets) and
+``dataset-report`` (split statistics, LaTeX table).  Their figures need
+matplotlib; without it each figure is skipped with a ``[warn]`` line and the
+tables are written all the same.  ``cli warm`` of the JAX package (XLA
+compile caches) is not ported.
 """
 
 from __future__ import annotations
@@ -100,7 +114,7 @@ def load_variables(path, cfg: ModelConfig) -> dict:
                          f".pt / .pth state dict ({err})") from None
 
 
-def _load_baseline(weights, cfg: Config):
+def load_baseline(weights, cfg: Config):
     """The baseline's PlainConvUNet on the CPU: from an nnU-Net checkpoint
     (``.pth`` / ``.pt``), from the JAX package's flat ``.npz``, or, without
     weights, from the initialisation of seed 0."""
@@ -191,7 +205,7 @@ def cmd_infer_container(args) -> int:
     # the weights are read for the model that will serve, which MODEL_TAG
     # of the environment may choose over --model-tag
     if os.getenv("MODEL_TAG", args.model_tag) == "baseline":
-        model = _load_baseline(args.weights, cfg)
+        model = load_baseline(args.weights, cfg)
     elif args.weights is None:
         raise SystemExit("the att_aspp model needs --weights (a flat .npz or "
                          "a .pt / .pth state dict)")
@@ -277,6 +291,82 @@ def cmd_train(args) -> int:
         "use_clahe": not no_clahe,
         "stage": cfg.train.stage,
     }, indent=2)
+    return 0
+
+
+def cmd_eval_seg(args) -> int:
+    from .evals.seg_metrics import evaluate_directories
+
+    evaluate_directories(Path(args.gt), Path(args.base), Path(args.new),
+                         out_csv=Path(args.out_csv),
+                         new_suffix=args.new_suffix,
+                         plot_dir=Path(args.plot_dir) if args.plot else None)
+    return 0
+
+
+def cmd_eval_ac(args) -> int:
+    from .evals.ac_analysis import analyze_ac
+
+    analyze_ac(args.gt, args.baseline, args.new, args.out,
+               frames_per_sweep=args.fps)
+    return 0
+
+
+def cmd_vis_errors(args) -> int:
+    from .evals.visualize import render_worst_cases
+
+    render_worst_cases(Path(args.csv), Path(args.gt), Path(args.base),
+                       Path(args.new), Path(args.out),
+                       img_dir=Path(args.images) if args.images else None,
+                       top=args.top, alpha=args.alpha, edge=args.edge)
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from .tools.convert import convert_frames_with_negatives
+
+    convert_frames_with_negatives(
+        args.mha_root, args.out_root, topk=args.topk,
+        neighbor_pad=args.neighbor_pad, min_area_mm2=args.min_area_mm2,
+        min_area_px=args.min_area_px, neg_strategy=args.neg_strategy,
+        neg_ratio=args.neg_ratio, neg_cap=args.neg_cap,
+        neg_stride=args.neg_stride, seed=args.seed,
+        export_neg_only=args.export_neg_only,
+        neg_total_cap=args.neg_total_cap)
+    return 0
+
+
+def cmd_split(args) -> int:
+    from .tools.split import split_train_val
+
+    split_train_val(args.raw_root, args.out_root, args.train_frac, args.seed)
+    return 0
+
+
+def cmd_leak_check(args) -> int:
+    from .tools.leak_check import check_split_leak
+
+    res = check_split_leak(args.train, args.val, args.out,
+                           recursive=args.recursive, by_stem=args.by_stem)
+    return 1 if res["present"] else 0
+
+
+def cmd_dataset_report(args) -> int:
+    from .evals.reports import (load_flat_images_masks, load_from_directory,
+                                load_from_frame_index, make_dataset_reports)
+
+    if args.frame_index:
+        rows = load_from_frame_index(Path(args.frame_index))
+    elif args.flat_root:
+        rows = load_flat_images_masks(Path(args.flat_root),
+                                      split_name_override=args.flat_split_name)
+    elif args.root:
+        rows = load_from_directory(Path(args.root))
+    else:
+        raise SystemExit("one of --frame_index / --flat_root / --root required")
+    if not rows:
+        raise SystemExit("no frames found")
+    make_dataset_reports(rows, Path(args.outdir))
     return 0
 
 
@@ -423,6 +513,85 @@ def build_parser() -> argparse.ArgumentParser:
                          "PNGs (writing them needs PIL)")
     _common_flags(ic)
     ic.set_defaults(fn=cmd_infer_container)
+
+    es = sp.add_parser("eval-seg", help="Dice / IoU / HD95 of a new and a "
+                       "baseline model's masks against GT masks")
+    es.add_argument("--gt", required=True)
+    es.add_argument("--base", required=True)
+    es.add_argument("--new", required=True)
+    es.add_argument("--out_csv", default="seg_eval.csv")
+    es.add_argument("--new_suffix", default="_mask")
+    es.add_argument("--plot", action="store_true")
+    es.add_argument("--plot_dir", default="plots")
+    es.set_defaults(fn=cmd_eval_seg)
+
+    ea = sp.add_parser("eval-ac", help="AC agreement of two models' "
+                       "ac_results.csv with a per-sweep GT table")
+    ea.add_argument("--gt", required=True)
+    ea.add_argument("--baseline", required=True)
+    ea.add_argument("--new", required=True)
+    ea.add_argument("--out", default="ac_analysis_results")
+    ea.add_argument("--fps", type=int, default=140,
+                    help="frames per sweep of the stacked cases "
+                         "(ContainerConfig.frames_per_sweep)")
+    ea.set_defaults(fn=cmd_eval_ac)
+
+    ve = sp.add_parser("vis-errors", help="overlays of the worst ΔDice "
+                       "cases of a seg_eval.csv")
+    ve.add_argument("--csv", required=True)
+    ve.add_argument("--gt", required=True)
+    ve.add_argument("--base", required=True)
+    ve.add_argument("--new", required=True)
+    ve.add_argument("--out", default="vis")
+    ve.add_argument("--images")
+    ve.add_argument("--top", type=int, default=10)
+    ve.add_argument("--alpha", type=float, default=0.35)
+    ve.add_argument("--edge", type=int, default=2)
+    ve.set_defaults(fn=cmd_vis_errors)
+
+    cv = sp.add_parser("convert", help=".mha volume pairs to PNG frame "
+                       "pairs with negative sampling")
+    cv.add_argument("--mha_root", required=True)
+    cv.add_argument("--out_root", required=True)
+    cv.add_argument("--topk", type=int, default=3)
+    cv.add_argument("--neighbor_pad", type=int, default=0)
+    cv.add_argument("--min_area_mm2", type=float, default=80.0)
+    cv.add_argument("--min_area_px", type=int, default=100)
+    cv.add_argument("--neg_strategy", default="random",
+                    choices=["all", "random", "stride"])
+    cv.add_argument("--neg_ratio", type=float, default=0.0)
+    cv.add_argument("--neg_cap", type=int, default=5)
+    cv.add_argument("--neg_stride", type=int, default=5)
+    cv.add_argument("--seed", type=int, default=2025)
+    cv.add_argument("--export_neg_only", action="store_true")
+    cv.add_argument("--neg_total_cap", type=int, default=0)
+    cv.set_defaults(fn=cmd_convert)
+
+    spx = sp.add_parser("split", help="seeded train / val split of "
+                        "<raw_root>/{images,masks}")
+    spx.add_argument("--raw_root", default="./raw")
+    spx.add_argument("--out_root", default=".")
+    spx.add_argument("--train_frac", type=float, default=0.8)
+    spx.add_argument("--seed", type=int, default=42)
+    spx.set_defaults(fn=cmd_split)
+
+    lc = sp.add_parser("leak-check", help="files present in both the train "
+                       "and the val set (exit 1 if any)")
+    lc.add_argument("--train", default="train/images")
+    lc.add_argument("--val", default="val/images")
+    lc.add_argument("--out", default="check_results")
+    lc.add_argument("-r", "--recursive", action="store_true")
+    lc.add_argument("--by-stem", action="store_true")
+    lc.set_defaults(fn=cmd_leak_check)
+
+    dr = sp.add_parser("dataset-report", help="split statistics, LaTeX "
+                       "table and plots of a PNG dataset")
+    dr.add_argument("--frame_index")
+    dr.add_argument("--flat_root")
+    dr.add_argument("--flat_split_name")
+    dr.add_argument("--root")
+    dr.add_argument("--outdir", default="reports")
+    dr.set_defaults(fn=cmd_dataset_report)
     return ap
 
 

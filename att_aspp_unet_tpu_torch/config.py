@@ -126,8 +126,8 @@ class ContainerConfig:
     model_tag: str = "baseline"      # "baseline" | "att_aspp"
     case_id: str = "output"
     spacing_mm: float = 0.28
-    # as in the JAX package's config; read by its AC analysis tools, which
-    # are not ported, and by nothing in this package yet
+    # frames of one sweep in a stacked case: the default of eval-ac's --fps,
+    # which maps a predicted frame to its sweep (evals/ac_analysis.py)
     frames_per_sweep: int = 140
 
 

@@ -8,7 +8,9 @@ Only the single-file ``ElementDataFile = LOCAL`` layout is supported — that is
 what ``.mha`` means (as opposed to ``.mhd`` + ``.raw``), and it is the only
 layout the challenge uses.
 
-Inflate/deflate use Python's ``zlib``.
+Inflate and deflate run in the native host-ops library
+(``utils/native.py``) when it is available, else in Python's ``zlib``; both
+use zlib's defaults, so the bytes are the same.
 """
 
 from __future__ import annotations
@@ -185,7 +187,9 @@ def read_mha(path) -> MetaImage:
     shape = tuple(reversed(dim_size))
     if n_channels > 1:
         shape = shape + (n_channels,)
-    arr = arr.reshape(shape).copy()
+    arr = arr.reshape(shape)
+    if not arr.flags.writeable:     # a view of bytes (not the native buffer)
+        arr = arr.copy()
 
     spacing = header.get("ElementSpacing", header.get("ElementSize"))
     spacing_t = tuple(float(v) for v in spacing.split()) if spacing else (1.0,) * ndims
@@ -269,9 +273,22 @@ def _fmt(v: float) -> str:
     return s
 
 
-def _inflate(blob: bytes, n_bytes: int) -> bytes:
+def _inflate(blob: bytes, n_bytes: int):
+    """Native single-shot inflate into a new uint8 array when the host-ops
+    library is available; Python zlib's bytes otherwise (and for a stream
+    that the native call rejects, so that zlib names the fault)."""
+    from ..utils import native
+
+    out = native.inflate_into(blob, n_bytes)
+    if out is not None:
+        return out
     return zlib.decompress(blob, bufsize=max(n_bytes, 1))
 
 
 def _deflate(data: bytes, level: int) -> bytes:
+    from ..utils import native
+
+    out = native.deflate(data, level)
+    if out is not None:
+        return out
     return zlib.compress(data, level)

@@ -24,11 +24,15 @@ import torch.nn.functional as F
 def minmax_normalize_u8(frames: torch.Tensor) -> torch.Tensor:
     """Per-frame min-max rescale to [0, 255] -> uint8.  f32 arithmetic as the
     JAX package does it; ``torch.round`` rounds half to even like
-    ``jnp.round``.  Constant frames map to 0."""
+    ``jnp.round``.  Constant frames map to 0.  The scale is a true f32
+    division: PyTorch computes ``255.0 / t`` as ``255 * (1 / t)``, which is
+    one ulp off for most ranges and moves pixels whose scaled value lies
+    near a half."""
     x = frames.to(torch.float32)
     lo = x.amin(dim=(-2, -1), keepdim=True)
     hi = x.amax(dim=(-2, -1), keepdim=True)
-    scale = torch.where(hi > lo, 255.0 / (hi - lo), torch.zeros_like(hi))
+    scale = torch.where(hi > lo, torch.full_like(hi, 255.0) / (hi - lo),
+                        torch.zeros_like(hi))
     y = (x - lo) * scale
     return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)
 

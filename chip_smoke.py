@@ -82,7 +82,30 @@ Phases (any failure exits non-zero and prints no result line):
    fixed batch (the loss falls; ms per step, images/s, TFLOP/s, peak
    memory); ``cli predict --weights`` with the finetuned export on the
    140-frame sweep (the direct path's output checks, 72 K1 launches), and a
-   one-epoch 128-px no-CLAHE scout driving ``predict --cascade``.
+   one-epoch 128-px no-CLAHE scout driving ``predict --cascade``;
+12. compat: the reference-API facade ``FetalAbdomenSegmentation`` with the
+   repo's weights (``att_aspp``) on the 840-frame case, cold and warm (K1 64,
+   K2 1 each; probabilities, masks and frame equal to
+   ``AttAsppEngine.predict_roi``), card against CPU on 12 frames (same frame,
+   Dice >= 0.98), ``baseline`` (the in-repo plan, seed 0) on 140 frames (K1
+   0, K2 1), ``validate`` on the six sweeps and on a duplicate (raises),
+   ``save_probabilities`` under a temporary working directory;
+13. entry: ``python -m att_aspp_unet_tpu_torch.inference`` in a subprocess
+   with ``MODEL_TAG=att_aspp`` and ``WEIGHTS`` on the 840-frame case and
+   with ``MODEL_TAG`` unset and ``PLANS`` on 140 frames: the container
+   contract, the subprocess's launch counts;
+14. tools: ``split`` → ``leak-check`` (exit 0, then 1) of generated PNG
+   pairs, ``predict`` of the val PNGs with the v1 and a seeded ``--no_att``
+   model, ``eval-seg``, ``vis-errors``, ``dataset-report``, ``eval-ac`` of
+   the generator's true AC against direct and cascade ``predict`` on the six
+   sweeps, ``convert`` with the predicted mask volumes; seconds per call and
+   the figures skipped without matplotlib;
+15. native: the host ops library (``g++``) builds; the 840-frame case's
+   deflate, inflate and ``.mha`` round trip native against Python zlib
+   (equal bytes, ms), the contour tracer native against Python on the top-5
+   candidates of the six sweeps (equal contours, us per trace), and a
+   ``predict`` CLI call on a compressed 140-frame sweep that runs the native
+   codec and tracer.
 
 Every path is driven with the launch counters at zero and must have launched
 the kernels it runs.  The line before the last is a JSON object with one
@@ -386,8 +409,13 @@ def read_launches(where: str, expect=None):
     from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as ci
     from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as fc
 
-    got = {"fused_double_cbr": fc.fused_double_cbr.launches,
-           "clahe_interp": ci.clahe_interp.launches}
+    return hold_launches(where, {"fused_double_cbr": fc.fused_double_cbr.launches,
+                                 "clahe_interp": ci.clahe_interp.launches},
+                         expect)
+
+
+def hold_launches(where: str, got, expect=None):
+    """:func:`read_launches`' check of the counts ``got``."""
     runs = [v for v, e in zip(got.values(), expect or (1, 1)) if e]
     if not runs or min(runs) <= 0:
         raise AssertionError(f"{where}: a kernel never launched: {got}")
@@ -1834,6 +1862,607 @@ def phase_train(dev, sweep, best_true, thr, tmp, train_set, val_set):
     return totals
 
 
+N_COMPAT_CPU = 12            # frames of the facade's card-vs-CPU case
+N_TOOLS_PNG = 16             # PNG pairs of the [tools] phase's dataset
+ENTRY_LAUNCHER = r"""
+import time
+marks = {"start": time.time()}
+import atexit, json, os, runpy, sys
+import torch
+marks["torch_imported"] = time.time()
+if os.environ.get("DEVICE", "cuda") != "cpu":
+    torch.zeros(1, device=os.environ.get("DEVICE", "cuda"))
+    torch.cuda.synchronize()
+marks["device_ready"] = time.time()
+from att_aspp_unet_tpu_torch.infer import container as ct
+from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as ci
+from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as fc
+
+def timed_init(init):
+    def wrapped(self, *a, **kw):
+        init(self, *a, **kw)
+        if os.environ.get("DEVICE", "cuda") != "cpu":
+            torch.cuda.synchronize()
+        marks["engine_built"] = time.time()
+    return wrapped
+
+for cls in (ct.AttAsppEngine, ct.BaselineEngine):
+    cls.__init__ = timed_init(cls.__init__)
+
+def report():
+    marks["end"] = time.time()
+    print("LAUNCHES " + json.dumps(
+        [fc.fused_double_cbr.launches, ci.clahe_interp.launches]), flush=True)
+    print("MARKS " + json.dumps(marks), flush=True)
+
+atexit.register(report)
+sys.argv = ["inference"]
+runpy.run_module("att_aspp_unet_tpu_torch.inference", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def write_case_tree(root: Path, name: str, vol, compressed=False) -> Path:
+    """``vol`` as the single case of a container input tree under ``root``."""
+    from att_aspp_unet_tpu_torch.io import MetaImage, write_mha
+
+    src = root / "images/stacked-fetal-ultrasound"
+    src.mkdir(parents=True)
+    write_mha(src / f"{name}.mha", MetaImage(vol, spacing=(0.28,) * 3),
+              compressed=compressed)
+    return src / f"{name}.mha"
+
+
+def check_container_contract(out: Path, case_id: str, shape, frames,
+                             where: str):
+    """The written volume is uint8 {0, 1} of the input's shape with spacing
+    0.28, the frame JSON names a frame in ``frames`` and the foreground lies
+    only on it; returns (frame, mask pixels)."""
+    import numpy as np
+
+    from att_aspp_unet_tpu_torch.io import read_json, read_mha
+
+    vol = read_mha(out / f"images/fetal-abdomen-segmentation/{case_id}.mha")
+    frame = read_json(out / "fetal-abdomen-frame-number.json")
+    arr = vol.array
+    fg = np.flatnonzero(arr.reshape(shape[0], -1).any(axis=1)).tolist()
+    log(f"[{where}] volume {arr.shape} {arr.dtype} values "
+        f"{sorted(np.unique(arr).tolist())}, spacing {vol.spacing}, mask on "
+        f"frames {fg}, frame JSON {frame}")
+    if not (arr.shape == tuple(shape) and arr.dtype == np.uint8
+            and set(np.unique(arr)) <= {0, 1} and fg == [frame]
+            and all(abs(v - 0.28) < 1e-9 for v in vol.spacing)
+            and frame in frames and arr.any()):
+        raise AssertionError(f"{where}: outputs failed the container contract")
+    return frame, int(arr.sum())
+
+
+def phase_compat(dev, case, sweeps, variables, tmp):
+    """The reference-API facade ``FetalAbdomenSegmentation``: ``att_aspp``
+    from the repo's weights on the 840-frame case (K1 64, K2 1; equal to
+    ``AttAsppEngine.predict_roi`` on the same case), card against CPU on 12
+    frames; ``baseline`` (the in-repo plan, seed 0) on 140 frames (K2 1, K1
+    0); ``validate`` on the six sweeps and on a duplicate; the probability
+    dump relative to the working directory."""
+    import numpy as np
+    import torch
+
+    from att_aspp_unet_tpu_torch import compat
+    from att_aspp_unet_tpu_torch.infer.engine import AttAsppEngine
+    from att_aspp_unet_tpu_torch.io import MetaImage, write_mha
+    from att_aspp_unet_tpu_torch.models import PlainConvUNet
+
+    n = case.shape[0]
+    n_sub = min(128, n)
+    idxs = np.linspace(0, n - 1, n_sub).astype(int)
+    root = tmp / "compat"
+    root.mkdir()
+    path = root / "case_840.mha"
+    write_mha(path, MetaImage(case, spacing=(0.28,) * 3), compressed=False)
+    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    cfg = main_config()         # the default Config at the main width
+    fac = compat.FetalAbdomenSegmentation(str(REPO / MAIN_WEIGHTS),
+                                          model_tag="att_aspp", cfg=cfg,
+                                          device=dev)
+    secs = []
+    for run in ("cold", "warm"):
+        reset_launches()
+        t0 = time.perf_counter()
+        probs = fac.predict(str(path))
+        masks = fac.postprocess(probs)
+        sel, frame = compat.select_fetal_abdomen_mask_and_frame(masks)
+        secs.append(time.perf_counter() - t0)
+        # 128 subsampled frames in 8 micro-batches of 16 x 8 pairs; one CLAHE
+        launches = read_launches(f"compat {run}",
+                                 (forward_launches(n_sub, 16), 1))
+        add(launches)
+    log(f"[compat] att_aspp facade on the {n}-frame case: predict + "
+        f"postprocess + select {secs[0]:.3f} s cold, {secs[1]:.3f} s warm per "
+        f"case (read .mha, ROI path on {n_sub} frames, probabilities and "
+        f"masks to numpy); probs {probs.shape} {probs.dtype}, frame {frame} "
+        f"on the subsampled axis (= case frame {idxs[frame]}), "
+        f"{int(sel.sum())} mask pixels; launches per case {launches}")
+    eng = AttAsppEngine(cfg, variables, device=dev)
+    p_eng = eng.predict_roi(case)
+    m_eng = eng.postprocess_roi(p_eng).cpu().numpy()
+    p_eng = p_eng.cpu().numpy()
+    del eng
+    s_eng, f_eng = compat.select_fetal_abdomen_mask_and_frame(m_eng)
+    diff = float(np.abs(probs - p_eng).max())
+    log(f"[compat] AttAsppEngine.predict_roi directly: frame {f_eng}, "
+        f"probabilities max |diff| {diff:.3g}, masks equal "
+        f"{bool(np.array_equal(masks, m_eng))}")
+    if not (frame == f_eng and frame >= 0 and diff <= 1e-6
+            and np.array_equal(masks, m_eng) and np.array_equal(sel, s_eng)):
+        raise AssertionError("compat: the facade differs from the engine")
+
+    # card against the CPU's plain versions on 12 frames around the pick
+    center = int(idxs[frame])
+    picks = [int(i) for i in center + 10 * np.arange(-6, 6) if 0 <= i < n]
+    small = root / "sub.mha"
+    write_mha(small, MetaImage(case[picks], spacing=(0.28,) * 3))
+    got = {}
+    for device in (dev, "cpu"):
+        f = compat.FetalAbdomenSegmentation(str(REPO / MAIN_WEIGHTS),
+                                            cfg=cfg, device=device)
+        t0 = time.perf_counter()
+        m = f.postprocess(f.predict(str(small)))
+        got[device] = (*compat.select_fetal_abdomen_mask_and_frame(m),
+                       time.perf_counter() - t0)
+    (s_g, f_g, _), (s_c, f_c, t_cpu) = got[dev], got["cpu"]
+    d = dice(s_g, s_c)
+    log(f"[compat] {len(picks)} frames {picks[0]}..{picks[-1]} as a case: card "
+        f"frame {f_g}, CPU plain frame {f_c} ({t_cpu:.1f} s), selected-mask "
+        f"Dice {d:.5f}")
+    if f_g != f_c or d < 0.98:
+        raise AssertionError("compat: card and CPU plain versions disagree")
+
+    # the baseline facade: in-repo plan at full width, seeded init
+    bcfg = baseline_config()
+    bfac = compat.FetalAbdomenSegmentation(
+        variables=PlainConvUNet.from_config(bcfg.plain_unet,
+                                            seed=BASELINE_SEED),
+        model_tag="baseline", cfg=bcfg, device=dev)
+    p140 = root / "sweep_0.mha"
+    write_mha(p140, MetaImage(sweeps[0], spacing=(0.28,) * 3),
+              compressed=False)
+    reset_launches()
+    t0 = time.perf_counter()
+    bprobs = bfac.predict([str(p140)])
+    seg = bfac.postprocess(bprobs)
+    bsel, bframe = compat.select_fetal_abdomen_mask_and_frame(seg)
+    t_b = time.perf_counter() - t0
+    add(read_launches("compat baseline", (0, 1)))
+    log(f"[compat] baseline facade on {sweeps[0].shape[0]} frames: {t_b:.3f} s "
+        f"(cold); softmax {bprobs.shape} {bprobs.dtype}, labels "
+        f"{sorted(np.unique(seg).tolist())}, frame {bframe}, "
+        f"{int(bsel.sum())} mask pixels")
+    if not (bprobs.shape == (3,) + sweeps[0].shape and bframe >= 0
+            and set(np.unique(bsel)) <= {0, 1}):
+        raise AssertionError("compat: baseline facade outputs")
+    del bfac, bprobs, seg
+    torch.cuda.empty_cache()
+
+    # validate: the six sweeps pass, a copy of one under a new index fails
+    paths = []
+    for k, sw in enumerate(sweeps):
+        paths.append(root / f"val/case_{k}.mha")
+        paths[-1].parent.mkdir(exist_ok=True)
+        write_mha(paths[-1], MetaImage(sw, spacing=(0.28,) * 3),
+                  compressed=False)
+    t0 = time.perf_counter()
+    fac.validate(paths)
+    t_val = time.perf_counter() - t0
+    dup = root / "val/copy_6.mha"
+    dup.write_bytes(paths[0].read_bytes())
+    try:
+        fac.validate(paths + [dup])
+    except compat.ValidationError as err:
+        log(f"[compat] validate: six sweeps pass ({t_val:.2f} s); with a "
+            f"duplicate: ValidationError({err})")
+    else:
+        raise AssertionError("compat: a duplicate image passed validate")
+
+    # the probability dump lands under the working directory
+    cwd = os.getcwd()
+    os.chdir(root / "val")
+    try:
+        reset_launches()
+        probs = fac.predict(str(paths[1]), save_probabilities=True)
+        add(read_launches("compat save", (forward_launches(
+            min(128, sweeps[1].shape[0]), 16), 1)))
+        saved = np.load(root / "val/output/probabilities/case_1_prob.npy")
+    finally:
+        os.chdir(cwd)
+    log(f"[compat] save_probabilities: output/probabilities/case_1_prob.npy "
+        f"{saved.shape} written under the working directory, equal to the "
+        f"returned map: {bool(np.array_equal(saved, probs))}")
+    if not np.array_equal(saved, probs):
+        raise AssertionError("compat: the saved probabilities differ")
+    del fac
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_entry(dev, case, sweeps, tmp):
+    """``python -m att_aspp_unet_tpu_torch.inference`` in a subprocess
+    (through a launcher that runs the module as ``-m`` does and prints the
+    launch counters at exit): ``MODEL_TAG=att_aspp`` with ``WEIGHTS`` on the
+    840-frame case, then ``MODEL_TAG`` unset with ``PLANS`` on 140 frames;
+    the container contract on both."""
+    import numpy as np
+
+    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    n = case.shape[0]
+    # the entry point writes the debug frames (their enhancement is a second
+    # CLAHE launch) and dumps the probabilities, as the container does
+    runs = [("att_aspp", case, "case-840",
+             {"MODEL_TAG": "att_aspp", "WEIGHTS": str(REPO / MAIN_WEIGHTS)},
+             (forward_launches(min(128, n), 16), 2),
+             np.linspace(0, n - 1, min(128, n)).astype(int).tolist()),
+            ("baseline", sweeps[0], "sweep-0",
+             {"PLANS": str(REPO / PLAN_DIR / "plans.json"),
+              "DATASET_JSON": str(REPO / PLAN_DIR / "dataset.json")},
+             (0, 2), list(range(sweeps[0].shape[0])))]
+    for tag, vol, case_id, extra, expect, frames in runs:
+        cwd = tmp / f"entry_{tag}"
+        write_case_tree(cwd / "test/input", "case", vol)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MODEL_TAG", "WEIGHTS", "PLANS", "DATASET_JSON",
+                            "CASE_ID", "DEVICE")}
+        env.update(extra, CASE_ID=case_id, DEVICE=dev, PYTHONPATH=str(REPO))
+        t0, spawned = time.perf_counter(), time.time()
+        res = subprocess.run([sys.executable, "-c", ENTRY_LAUNCHER], cwd=cwd,
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"entry {tag}: rc {res.returncode}\n"
+                                 f"{res.stderr[-3000:]}")
+        counts = json.loads(res.stdout.split("LAUNCHES ")[-1].splitlines()[0])
+        marks = json.loads(res.stdout.split("MARKS ")[-1].splitlines()[0])
+        # seconds from the spawn to each mark, and each stage's share
+        at = {k: v - spawned for k, v in marks.items()}
+        stages = {"interpreter start": at["start"],
+                  "torch import": at["torch_imported"] - at["start"],
+                  "CUDA context": at["device_ready"] - at["torch_imported"],
+                  "port import + weights + engine": (
+                      at["engine_built"] - at["device_ready"]),
+                  "read, serve, write, dumps": at["end"] - at["engine_built"],
+                  "exit": wall - at["end"]}
+        log(f"[entry] {tag}: wall split (s) " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items()))
+        got = hold_launches(f"entry {tag}", {"fused_double_cbr": counts[0],
+                                             "clahe_interp": counts[1]},
+                            expect)
+        for k, v in got.items():
+            totals[k] += v
+        frame, px = check_container_contract(
+            cwd / "test/output", case_id, vol.shape, frames, f"entry {tag}")
+        dumps = sorted(p.name for p in (cwd / "output/probabilities").iterdir())
+        log(f"[entry] MODEL_TAG={'att_aspp' if tag == 'att_aspp' else '(unset)'}"
+            f": {wall:.2f} s wall for {vol.shape[0]} frames (process start, "
+            f"model build, read, serve, write, probability dump {dumps}, "
+            f"debug frames); frame {frame}, {px} mask pixels; launches {got}")
+    return totals
+
+
+def phase_tools(dev, sweeps, truths, train_sets, thr, tmp):
+    """The offline loop on data made here: PNG pairs (the generator's) →
+    ``split`` → ``leak-check`` (exit 0, then 1 with a file in both sets);
+    ``predict`` on the val PNGs with the repo's v1 model and a seeded
+    ``--no_att`` model, then ``eval-seg``, ``vis-errors`` and
+    ``dataset-report``; ``eval-ac`` of a GT table from the generator's true
+    circumferences against direct and cascade ``predict`` on the six sweeps;
+    ``convert`` on the sweeps with the port's predicted mask volumes."""
+    import shutil
+    import uuid
+
+    import numpy as np
+
+    from att_aspp_unet_tpu_torch import cli
+    from att_aspp_unet_tpu_torch.config import ModelConfig
+    from att_aspp_unet_tpu_torch.io import (MetaImage, read_gray_png,
+                                            read_mha, write_gray_png,
+                                            write_mha)
+
+    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    root = tmp / "tools"
+    secs = {}
+
+    def offline(argv, expect_rc=0):
+        """An offline subcommand: its seconds, the kernels untouched, the
+        figures it skipped for want of matplotlib."""
+        err = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err), \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv)
+        secs[argv[0]] = secs.get(argv[0], 0.0) + time.perf_counter() - t0
+        skipped = [w.split("skipped ")[-1] for w in err.getvalue().splitlines()
+                   if w.startswith("[warn] matplotlib unavailable")]
+        from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as ci
+        from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as fc
+        if rc != expect_rc or fc.fused_double_cbr.launches or \
+                ci.clahe_interp.launches:
+            raise AssertionError(f"tools {argv[0]}: rc {rc} (want "
+                                 f"{expect_rc}) or a kernel launched")
+        if skipped:
+            log(f"[tools] {argv[0]}: skipped {len(skipped)} figure(s) for "
+                f"want of matplotlib: {[Path(f).name for f in skipped]}")
+        return rc
+
+    def predict(argv, where, expect):
+        wall, launches, _ = run_cli(argv, where, expect)
+        for k, v in launches.items():
+            totals[k] += v
+        secs[where] = wall
+        return launches
+
+    # PNG pairs named by seeded UUIDs (the eval tools key cases so)
+    rng = np.random.default_rng(40)
+    imgs = np.concatenate([train_sets[1][0], train_sets[0][0]])[:N_TOOLS_PNG]
+    msks = np.concatenate([train_sets[1][1], train_sets[0][1]])[:N_TOOLS_PNG]
+    for im, m in zip(imgs, msks):
+        name = str(uuid.UUID(int=int(rng.integers(1 << 62)) << 64
+                             | int(rng.integers(1 << 62)))) + ".png"
+        write_gray_png(root / "raw/images" / name, im)
+        write_gray_png(root / "raw/masks" / name, m)
+    offline(["split", "--raw_root", str(root / "raw"), "--out_root",
+             str(root / "ds"), "--train_frac", "0.5"])
+    ds = root / "ds"
+    offline(["leak-check", "--train", str(ds / "train/images"), "--val",
+             str(ds / "val/images"), "--out", str(root / "leak")])
+    leaked = sorted((ds / "train/images").iterdir())[0]
+    shutil.copy(leaked, root / "leaked.png")
+    shutil.copy(leaked, ds / "val/images" / leaked.name)
+    offline(["leak-check", "--train", str(ds / "train/images"), "--val",
+             str(ds / "val/images"), "--out", str(root / "leak")],
+            expect_rc=1)
+    (ds / "val/images" / leaked.name).unlink()
+    n_val = len(list((ds / "val/images").iterdir()))
+
+    # predict the val PNGs with the v1 model and a seeded --no_att model
+    na_cfg = ModelConfig(base_c=BASE_C, use_att=False, att_depth=0)
+    save_flat_npz(root / "noatt.npz", seeded_variables(na_cfg))
+    common = ["--base_c", str(BASE_C), "--input_dir", str(ds / "val/images"),
+              "--thr", str(thr), "--device", dev]
+    for label, weights, extra in (("v1", REPO / MAIN_WEIGHTS, []),
+                                  ("noatt", root / "noatt.npz",
+                                   ["--no_att", "--att_depth", "0"])):
+        predict(["predict", "--weights", str(weights), "--out_dir",
+                 str(root / f"pred_{label}"), *common, *extra],
+                f"predict PNG {label}", (n_val * forward_launches(1, 16),
+                                         n_val))
+    offline(["eval-seg", "--gt", str(ds / "val/masks"), "--base",
+             str(root / "pred_noatt"), "--new", str(root / "pred_v1"),
+             "--out_csv", str(root / "seg_eval.csv"), "--plot",
+             "--plot_dir", str(root / "plots")])
+    rows = (root / "seg_eval.csv").read_text().splitlines()
+    offline(["vis-errors", "--csv", str(root / "seg_eval.csv"), "--gt",
+             str(ds / "val/masks"), "--base", str(root / "pred_noatt"),
+             "--new", str(root / "pred_v1"), "--images",
+             str(ds / "val/images"), "--out", str(root / "vis"), "--top",
+             "3"])
+    overlays = sorted(p.name for p in (root / "vis").glob("*_overlay.png"))
+    # dataset-report over the split (flat layout) and a pos / neg tree
+    offline(["dataset-report", "--flat_root", str(ds), "--outdir",
+             str(root / "rep_flat")])
+    for sp in ("train", "val"):
+        for p in sorted((ds / sp / "images").iterdir()):
+            cls = "pos" if read_gray_png(ds / sp / "masks" / p.name).any() \
+                else "neg"
+            dst = root / "posneg" / sp / cls
+            dst.mkdir(parents=True, exist_ok=True)
+            shutil.copy(p, dst / p.name)
+    offline(["dataset-report", "--root", str(root / "posneg"), "--outdir",
+             str(root / "rep_root")])
+    split_stats = (root / "rep_flat/split_stats.csv").read_text().splitlines()
+    log(f"[tools] split -> leak-check (exit 0, then 1 with {leaked.name} in "
+        f"both) -> predict v1 and --no_att on {n_val} val PNGs -> eval-seg "
+        f"({len(rows) - 1} cases; {rows[1][:60]}...) -> vis-errors "
+        f"{overlays} -> dataset-report: {split_stats}")
+
+    # eval-ac: the generator's true AC per sweep against direct and cascade
+    six = root / "six"
+    six.mkdir()
+    for k, sw in enumerate(sweeps):
+        write_mha(six / f"sweep_{k}.mha",
+                  MetaImage(sw, spacing=(0.28, 0.28, 1.0)), compressed=False)
+    gt = root / "gt_ac.csv"
+    gt.write_text("case_id,sweep_1_ac_mm\n" + "".join(
+        f"sweep_{k},{t.circumference_px() * 0.28!r}\n"
+        for k, t in enumerate(truths)))
+    n6 = sum(sw.shape[0] for sw in sweeps)
+    predict(["predict", "--weights", str(REPO / MAIN_WEIGHTS), "--base_c",
+             str(BASE_C), "--input_dir", str(six), "--out_dir",
+             str(root / "six_direct"), "--thr", str(thr), "--device", dev],
+            "predict six direct", (len(sweeps) * forward_launches(
+                N_FRAMES, 16), len(sweeps)))
+    predict(["predict", "--weights", str(REPO / MAIN_WEIGHTS), "--base_c",
+             str(BASE_C), "--input_dir", str(six), "--out_dir",
+             str(root / "six_cascade"), "--thr", str(thr), "--device", dev,
+             "--cascade", "--scout_weights", str(REPO / SCOUT_WEIGHTS)],
+            "predict six cascade", None)
+    offline(["eval-ac", "--gt", str(gt), "--baseline",
+             str(root / "six_direct/ac_results.csv"), "--new",
+             str(root / "six_cascade/ac_results.csv"), "--out",
+             str(root / "ac"), "--fps", str(N_FRAMES)])
+    metrics = (root / "ac/metrics.csv").read_text().splitlines()
+    stats = (root / "ac/stats.txt").read_text().split("\n")[0] \
+        if (root / "ac/stats.txt").exists() else "no paired statistics"
+    log(f"[tools] eval-ac of direct (baseline) and cascade (new) predict on "
+        f"the six sweeps ({n6} frames) against the generator's AC: "
+        f"{metrics}; {stats}")
+    if len(metrics) != 3:
+        raise AssertionError("tools: eval-ac metrics.csv")
+
+    # convert: the sweeps with the predicted mask volumes as their masks
+    conv = root / "conv"
+    (conv / "images").mkdir(parents=True)
+    (conv / "masks").mkdir()
+    for k, sw in enumerate(sweeps[:3]):
+        pred = read_mha(root / f"six_direct/sweep_{k}/images/"
+                        "fetal-abdomen-segmentation/output.mha")
+        write_mha(conv / f"images/sweep_{k}.mha",
+                  MetaImage(sw, spacing=(0.28, 0.28, 1.0)), compressed=False)
+        write_mha(conv / f"masks/sweep_{k}.mha", pred, compressed=False)
+    offline(["convert", "--mha_root", str(conv), "--out_root",
+             str(root / "conv_png"), "--neg_ratio", "2.0", "--seed", "5"])
+    index = json.loads((root / "conv_png/masks/frame_indices.json")
+                       .read_text())
+    log(f"[tools] convert on 3 sweeps with the predicted masks: "
+        f"{ {c: (v['pos'], v['neg']) for c, v in index.items()} } "
+        f"(pos, neg frames per case)")
+    if not all(v["pos"] for v in index.values()):
+        raise AssertionError("tools: convert found no positive frame")
+    log("[tools] seconds per CLI call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()))
+    return totals
+
+
+def phase_native(dev, case, sweeps, variables, thr, tmp):
+    """The native host ops: the library builds, and a cold build into an
+    empty directory is timed; deflate, inflate and the ``.mha`` round trip
+    of the 840-frame case native against Python zlib (the two deflates in
+    parallel threads: each releases the interpreter lock); the contour tracer native against Python on the top-5 candidates
+    of the six sweeps; one ``predict`` CLI call on 140 frames through the
+    native inflate and tracer (call counts)."""
+    import threading
+    import zlib
+
+    import numpy as np
+
+    from att_aspp_unet_tpu_torch.infer.engine import AttAsppEngine
+    from att_aspp_unet_tpu_torch.io import MetaImage, read_mha, write_mha
+    from att_aspp_unet_tpu_torch.measure.contour import trace_contour_python
+    from att_aspp_unet_tpu_torch.utils import native
+
+    # built by g++ at the run's first .mha read or write
+    ok = native.available()
+    log(f"[native] host ops library {native.library_path().name}: available "
+        f"{ok}")
+    if not ok:
+        raise AssertionError("native: the host ops library is unavailable")
+
+    root = tmp / "native"
+    root.mkdir()
+    # the cost a process pays at its first .mha read or trace when the
+    # checkout holds no library yet: the same build into an empty directory
+    saved = native.BUILD_DIR
+    native.BUILD_DIR = root / "cold_build"
+    try:
+        t = time.perf_counter()
+        native.build()
+        cold_s = time.perf_counter() - t
+    finally:
+        native.BUILD_DIR = saved
+    log(f"[native] cold build (g++, empty build directory): {cold_s:.2f} s")
+    data = case.tobytes()
+    out, ms = {}, {}
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out[key] = fn()
+        ms[key] = (time.perf_counter() - t) * 1e3
+
+    native.reset_native_calls()
+    threads = [threading.Thread(target=timed, args=(
+                   "write_mha", lambda: write_mha(
+                       root / "case.mha", MetaImage(case, spacing=(0.28,) * 3)))),
+               threading.Thread(target=timed, args=(
+                   "zlib.compress", lambda: zlib.compress(data, 6)))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    raw = (root / "case.mha").read_bytes()
+    head, payload = raw.split(b"ElementDataFile = LOCAL\n", 1)
+    blob = out["zlib.compress"]
+    timed("native.inflate", lambda: native.inflate_into(blob, len(data)))
+    timed("zlib.decompress", lambda: zlib.decompress(blob, bufsize=len(data)))
+    timed("read_mha", lambda: read_mha(root / "case.mha").array)
+    calls = native.read_native_calls()
+    same = (payload == blob and f"CompressedDataSize = {len(blob)}".encode()
+            in head and np.array_equal(out["native.inflate"],
+                                       np.frombuffer(data, np.uint8))
+            and out["zlib.decompress"] == data
+            and np.array_equal(out["read_mha"], case))
+    log(f"[native] {len(data) / 1e6:.1f} MB case: .mha write (native deflate, "
+        f"level 6) {ms['write_mha']:.0f} ms vs zlib.compress "
+        f"{ms['zlib.compress']:.0f} ms, in parallel threads; payload bytes "
+        f"equal {payload == blob} ({len(blob) / 1e6:.1f} MB); inflate_into "
+        f"native {ms['native.inflate']:.0f} ms vs zlib.decompress "
+        f"{ms['zlib.decompress']:.0f} ms; read_mha (native inflate) "
+        f"{ms['read_mha']:.0f} ms, volume equal; native calls {calls}")
+    if not same or calls.get("deflate") != 1 or calls.get("inflate") != 2:
+        raise AssertionError("native: codec bytes or calls")
+    del data, raw, payload, blob, out
+
+    # contours of the top-5 candidates of each sweep, native vs Python
+    eng = AttAsppEngine(main_config(), variables, device=dev)
+    t_nat, t_py, n_tr, n_pts = 0.0, 0.0, 0, 0
+    for sw in sweeps:
+        _, refined = eng._collect(eng.predict_case_submit(sw, thr))
+        areas = (refined > 0).reshape(refined.shape[0], -1).sum(axis=1)
+        for i in np.argsort(areas)[::-1][:5]:
+            t = time.perf_counter()
+            a = native.trace_contour(refined[i])
+            t_nat += time.perf_counter() - t
+            t = time.perf_counter()
+            b = trace_contour_python(refined[i])
+            t_py += time.perf_counter() - t
+            if not np.array_equal(a, b):
+                raise AssertionError("native: contours differ from Python's")
+            n_tr += 1
+            n_pts += len(a)
+    del eng
+    log(f"[native] trace_contour on the top-5 candidates of the six sweeps: "
+        f"{n_tr} masks, {n_pts} contour points, all equal; native "
+        f"{t_nat / n_tr * 1e6:.1f} us vs Python {t_py / n_tr * 1e6:.1f} us "
+        f"per trace (x{t_py / t_nat:.0f})")
+
+    # one predict CLI call on a compressed 140-frame sweep
+    (root / "in").mkdir()
+    write_mha(root / "in/sweep_0.mha",
+              MetaImage(sweeps[0], spacing=(0.28, 0.28, 1.0)))
+    native.reset_native_calls()
+    wall = run_predict_cli(dev, root / "in", root / "out", thr)
+    launches = read_launches("native predict", (forward_launches(
+        sweeps[0].shape[0], 16), 1))
+    calls = native.read_native_calls()
+    log(f"[native] cli predict on the compressed 140-frame sweep: {wall:.2f} "
+        f"s (read and inflate, predict, trace, write); native "
+        f"calls {calls}; kernel launches {launches}")
+    # the predict CLI writes its volume uncompressed, as the JAX package's
+    # does: no deflate here (the .mha write above held it)
+    if calls.get("trace_contour", 0) < 5 or calls.get("inflate", 0) < 1:
+        raise AssertionError(f"native: predict took the Python path {calls}")
+    return launches
+
+
+def host_library(name: str) -> str:
+    """The version of a host library (without importing it), or
+    "missing"."""
+    import zlib
+    from importlib import metadata, util
+
+    if name == "zlib":
+        return zlib.ZLIB_RUNTIME_VERSION
+    if util.find_spec(name) is None:
+        return "missing"
+    try:
+        return metadata.version({"PIL": "pillow"}.get(name, name))
+    except metadata.PackageNotFoundError:
+        return "present"
+
+
 def make_seeded_sweep(seed: int):
     from att_aspp_unet_tpu_torch.tools.synthetic import make_sweep
 
@@ -1858,7 +2487,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}; "
+        + ", ".join(f"{m} {host_library(m)}"
+                    for m in ("PIL", "pandas", "matplotlib", "zlib")))
     t_start = time.perf_counter()
     # the six sweeps are generated by worker processes (numpy only) while
     # the kernels build and the K1 phase runs
@@ -1916,6 +2547,12 @@ def main() -> int:
         add(phase_baseline(dev, sweeps[0], case, tmp))
         torch.cuda.empty_cache()
         add(phase_train(dev, sweeps[0], bests[0], thr, tmp, *train_sets))
+        torch.cuda.empty_cache()
+        add(phase_compat(dev, case, sweeps, variables, tmp))
+        add(phase_entry(dev, case, sweeps, tmp))
+        add(phase_tools(dev, sweeps, [m[2] for m in made], train_sets, thr,
+                        tmp))
+        add(phase_native(dev, case, sweeps, variables, thr, tmp))
     k1["launches"] = totals["fused_double_cbr"]
     k2["launches"] = totals["clahe_interp"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

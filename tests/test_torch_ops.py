@@ -44,6 +44,19 @@ def test_minmax_normalize_u8_bit_exact(rng):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("hi", [238, 200, 96])
+def test_minmax_normalize_u8_bit_exact_on_u8_ranges(rng, hi):
+    """uint8 frames whose range is not 0..255 (these three put exact halves
+    on the grid): the scale 255 / (hi - lo) is a true division (``255.0 / t``
+    in PyTorch is ``255 * (1 / t)``, one ulp off, which moved values on a
+    half up a grey level)."""
+    x = rng.integers(0, hi + 1, (4, 40, 48)).astype(np.uint8)
+    x[:, 0, :2] = (0, hi)
+    want = np.asarray(jimage.minmax_normalize_u8(jnp.asarray(x)))
+    np.testing.assert_array_equal(
+        timage.minmax_normalize_u8(_t(x)).numpy(), want)
+
+
 def test_median3x3_bit_exact(rng):
     x = _frames(rng, 2, 19, 26)
     want = np.asarray(jimage.median3x3(jnp.asarray(x)))
