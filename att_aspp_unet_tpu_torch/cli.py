@@ -32,8 +32,11 @@ main|finetune`` (``--pretrained``), ``--epochs``, ``--batch_size``, ``--lr``,
 ``<output_dir>/ckpt_main`` (or ``ckpt_finetune``) with ``best``, ``last`` and
 ``metrics.csv``, resumes from ``last``, and writes ``summary.json`` (and with
 ``--export_npz`` the flat f16 ``weights.npz`` that ``predict --weights`` and
-``--scout_weights`` read).  The JAX CLI's TPU-only ``--lowering`` is not
-taken.
+``--scout_weights`` read).  As the JAX CLI shards the batch over every
+device, ``--device cuda`` trains on every visible card that the batch size
+admits (``parallel.make_mesh_for_batch``), one process per card in an NCCL
+group, and computes what one card would; ``--device cpu`` is one process.
+The JAX CLI's TPU-only ``--lowering`` is not taken.
 
 ``python -m att_aspp_unet_tpu_torch.cli infer-container`` runs the
 Grand-Challenge container contract on one case (``MODEL_TAG`` and ``CASE_ID``

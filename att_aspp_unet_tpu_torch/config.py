@@ -1,7 +1,7 @@
 """Configuration of the serving paths (direct, cascade, bulk, ROI container,
-nnU-Net baseline), of threshold calibration and of training: the fields of
-``att_aspp_unet_tpu/config.py`` that these paths read, with the same names
-and defaults."""
+nnU-Net baseline), of threshold calibration, of training and of the data
+parallelism over devices: the fields of ``att_aspp_unet_tpu/config.py`` that
+these paths read, with the same names and defaults."""
 
 from __future__ import annotations
 
@@ -188,6 +188,20 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device layout of the data parallelism (``parallel/mesh.py``): the
+    frames of a sweep and the samples of a train batch split over the
+    ``data`` axis.  A ``model`` axis of ``model_parallelism`` devices would
+    replicate the model (it is not sharded at this model's ~30 M
+    parameters), so only one device of each such group serves as a data
+    device."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallelism: int = 1
+
+
+@dataclass(frozen=True)
 class Config:
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -196,3 +210,4 @@ class Config:
     calibrate: CalibrateConfig = field(default_factory=CalibrateConfig)
     container: ContainerConfig = field(default_factory=ContainerConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)

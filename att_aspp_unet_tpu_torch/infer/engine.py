@@ -1,4 +1,5 @@
-"""Sweep inference engine: the four serving modes on one device.
+"""Sweep inference engine: the four serving modes, on one device or with the
+frames of a sweep split over several.
 
 Counterpart of ``att_aspp_unet_tpu/infer/engine.py`` (``AttAsppEngine``):
 
@@ -29,12 +30,25 @@ records travel with the result.  The handle keeps the input of each such step
 on the device, so a collect half that finds a record set repeats the work
 from that step on with the exact loops: never the upload, and no forward that
 came before the step.
+
+With ``devices`` (the counterpart of the JAX engines' ``mesh``), the direct
+path, the ROI path and the baseline split the frame axis into contiguous
+shards, one per data device, cut at micro-batch boundaries
+(``parallel/mesh.py``); each device runs enhancement (K2), the forward (K1,
+with its own copy of the model and its own prepacked weights) and the
+per-frame tail on its shard, and only what the rest of the path needs is
+gathered onto the primary device (the first of ``devices``): the
+probabilities, or the direct path's rank keys and its candidates' masks.
+Every micro-batch is the one-device engine's, so the results are too.  The
+cascade and the bulk path run on one device.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
+import math
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
@@ -44,10 +58,11 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config, ModelConfig
-from ..device import resolve_device
 from ..measure.ellipse import measure_ac_mm
 from ..models.plain_unet import PlainConvUNet
-from ..models.sliding_window import sliding_window_predict
+from ..models.sliding_window import (compute_tile_starts,
+                                     sliding_window_predict)
+from ..parallel import mesh
 from ..ops.image import gaussian_blur, resize_bilinear, resize_nearest
 from ..postprocess import cc
 from ..postprocess.morphology import (binary_closing, fill_holes,
@@ -318,31 +333,53 @@ def _unpack_result(packed: torch.Tensor, hw: Tuple[int, int]):
     return cand_idx, refined, int(arr[..., -1].max())
 
 
+def _replicas(model, devices: List[torch.device], fmt=torch.preserve_format
+              ) -> Dict[torch.device, torch.nn.Module]:
+    """``model`` (on ``devices[0]``) and a copy of it on each other distinct
+    device."""
+    return {d: model if d == devices[0] else
+            copy.deepcopy(model).to(d, memory_format=fmt) for d in devices}
+
+
+def _resolve(device, devices):
+    """(primary, data devices) of an engine: ``devices[0]`` and ``devices``,
+    or ``device`` alone; a card with its index, as the tensors on it name
+    it."""
+    devs = mesh.resolve_devices([device] if devices is None else devices)
+    return devs[0], devs
+
+
 class AttAsppEngine:
-    """Attention-ASPP-UNet inference over full sweeps on one device.
+    """Attention-ASPP-UNet inference over full sweeps.
 
     ``variables`` is the JAX package's nested numpy tree
     (``utils.npz_weights.load_npz_variables``); ``device`` defaults to the
-    card and raises if there is none.  With ``PredictConfig.cascade`` and
+    card and raises if there is none.  ``devices`` (a list, in place of
+    ``device``) splits the frames of the direct, full-probability and ROI
+    paths over those devices, the first being the primary; a card may be
+    listed twice.  With ``PredictConfig.cascade`` and
     ``cascade_scout_weights`` a second, smaller model is loaded for the
     cascade's tier-1 ranking forward (:meth:`_init_scout`).
 
     ``stage_times``: when a dict, every case adds its seconds per stage to it
     ("preprocess", "forward", "postprocess"; the cascade adds
     "scout_preprocess", "scout_forward", "scout_rank" before them),
-    synchronising the device at each stage boundary; None records nothing
-    and adds no sync.
+    synchronising the devices at each stage boundary (so that shards on
+    several devices then run one after another); None records nothing and
+    adds no sync.
     """
 
     def __init__(self, cfg: Config, variables: Optional[dict] = None,
                  device="cuda", model=None,
-                 stage_times: Optional[Dict[str, float]] = None):
+                 stage_times: Optional[Dict[str, float]] = None,
+                 devices=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device, self.devices = _resolve(device, devices)
         if model is None:
             model = jax_variables_to_torch(variables, cfg.model,
                                            device=self.device)
         self.model = model
+        self.models = _replicas(model, self.devices)
         self.stage_times = stage_times
         # on a card the submit halves run their fixed points speculatively,
         # so that the host never waits for the device there
@@ -407,8 +444,9 @@ class AttAsppEngine:
         """End ``stage`` now (None starts the clock)."""
         if self.stage_times is None:
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         now = time.perf_counter()
         if stage is not None:
             self.stage_times[stage] = (self.stage_times.get(stage, 0.0)
@@ -425,16 +463,21 @@ class AttAsppEngine:
     @torch.no_grad()
     def predict_full(self, sweep) -> torch.Tensor:
         """Raw (N, H, W) sweep -> (N, H, W) f32 probabilities at native
-        resolution (blurred, ready for thresholding).  ``tta_hflip`` defaults
-        off in ``PredictConfig``; the predict CLI turns it on."""
-        p, pc = self.cfg.preprocess, self.cfg.predict
+        resolution (blurred, ready for thresholding) on the primary device.
+        ``tta_hflip`` defaults off in ``PredictConfig``; the predict CLI
+        turns it on."""
         self._mark()
-        sweep = self._to_device(sweep)
+        return mesh.gather([self._full_probs(s) for s in mesh.split_frames(
+            sweep, self.devices, self.cfg.predict.frame_batch)], self.device)
+
+    def _full_probs(self, sweep: torch.Tensor) -> torch.Tensor:
+        """:meth:`predict_full` of frames on one device, by its model."""
+        p, pc = self.cfg.preprocess, self.cfg.predict
         x = preprocess_sweep(sweep, p.img_size, p.clahe_clip, p.clahe_grid,
                              p.median_kernel)
         self._mark("preprocess")
-        probs = predict_sweep_probs(self.model, x, pc.frame_batch,
-                                    pc.tta_hflip)
+        probs = predict_sweep_probs(self.models[sweep.device], x,
+                                    pc.frame_batch, pc.tta_hflip)
         self._mark("forward")
         native = resize_bilinear(probs, tuple(sweep.shape[-2:]))
         return gaussian_blur(native, pc.gaussian_kernel, 0.0)
@@ -524,8 +567,9 @@ class AttAsppEngine:
             with cc.speculative() as unsettled:
                 state = fn(state)
             if unsettled:
-                flags = flags | (torch.stack(unsettled).any().to(torch.uint8)
-                                 << (len(resume) - 1))
+                flags = flags | (torch.stack([u.to(self.device) for u in
+                                              unsettled]).any()
+                                 .to(torch.uint8) << (len(resume) - 1))
         return _pack_result(*state, flags), hw, (steps, resume)
 
     @torch.no_grad()
@@ -548,6 +592,7 @@ class AttAsppEngine:
         (cand_idx (m,), refined (m, H, W))."""
         pc = self.cfg.predict
         if pc.cascade:
+            self._one_device("the cascade")
             return ([(lambda sweep: self._to_device(sweep)[None], False)]
                     + cascade_steps(self.model, n, **self._cascade_args(
                         thr, n, n, 1, pc.frame_batch))
@@ -555,16 +600,27 @@ class AttAsppEngine:
         m = max(1, min(pc.topk_frames + pc.refine_margin, n))
 
         def forward(sweep):
-            return _threshold(self.predict_full(sweep), thr)
+            self._mark()
+            return [_threshold(self._full_probs(s), thr) for s in
+                    mesh.split_frames(sweep, self.devices, pc.frame_batch)]
 
-        def select(binary):
-            cand_idx = rank_candidates(
-                candidate_rank_areas(binary, pc.close_kernel), n, m)
+        def select(binaries):
+            # each device computes its shard's rank keys; the keys and the
+            # candidates' masks gather on the primary device
+            areas = [candidate_rank_areas(b, pc.close_kernel)
+                     for b in binaries]
+            cand_idx = rank_candidates(mesh.gather(areas, self.device), n, m)
             return cand_idx, refine_mask_true_size(
-                binary[cand_idx], pc.min_area_px, pc.min_area_frac,
-                pc.close_kernel)
+                _take_frames(binaries, cand_idx), pc.min_area_px,
+                pc.min_area_frac, pc.close_kernel)
 
         return [(forward, False), (select, True)]
+
+    def _one_device(self, what: str) -> None:
+        if len(self.devices) > 1:
+            raise NotImplementedError(
+                f"{what} runs on one device; this engine has "
+                f"{len(self.devices)} data devices")
 
     def predict_case_submit(self, sweep, threshold: Optional[float] = None):
         """Device half of :meth:`predict_case`: probabilities, candidate
@@ -633,6 +689,7 @@ class AttAsppEngine:
         pc = self.cfg.predict
         if not pc.cascade:
             raise ValueError("predict_bulk requires PredictConfig.cascade")
+        self._one_device("the bulk path")
         thr = pc.threshold if threshold is None else threshold
         shape = tuple(int(v) for v in np.shape(sweeps))
         return self._submit(self._bulk_steps(thr, *shape[:2]), sweeps,
@@ -667,19 +724,24 @@ class AttAsppEngine:
         (picked on the host, so only they are uploaded), enhanced, cropped to
         ``roi_size`` around the intensity centroid, forwarded without TTA in
         ``frame_batch`` micro-batches, pasted back into zero maps."""
-        p, pc = self.cfg.preprocess, self.cfg.predict
+        pc = self.cfg.predict
         n = int(np.shape(sweep)[0])
         idxs = np.linspace(0, n - 1, min(pc.subsample_frames, n)).astype(int)
         self._mark()
         if not isinstance(sweep, torch.Tensor):
             sweep = np.asarray(sweep)
-        frames = self._to_device(sweep[idxs])
+        return mesh.gather([self._roi_probs(s) for s in mesh.split_frames(
+            sweep[idxs], self.devices, pc.frame_batch)], self.device)
+
+    def _roi_probs(self, frames: torch.Tensor) -> torch.Tensor:
+        """:meth:`predict_roi` of subsampled frames on one device."""
+        p, pc = self.cfg.preprocess, self.cfg.predict
         vol = enhance_frames(frames, p.clahe_clip, p.clahe_grid,
                              p.median_kernel).to(torch.float32) / 255.0
         patches, origins = crop_roi(vol, pc.roi_size)
         self._mark("preprocess")
-        probs_roi = predict_sweep_probs(self.model, patches, pc.frame_batch,
-                                        hflip=False)
+        probs_roi = predict_sweep_probs(self.models[frames.device], patches,
+                                        pc.frame_batch, hflip=False)
         self._mark("forward")
         return paste_roi_probs(probs_roi, origins, tuple(vol.shape[-2:]))
 
@@ -690,17 +752,21 @@ class AttAsppEngine:
 
 class BaselineEngine:
     """PlainConvUNet + sliding-window tiled inference (the nnU-Net-style
-    path) on one device.
+    path).
 
     ``model`` is the port's :class:`PlainConvUNet` (moved to ``device``) or
     the JAX package's PlainConvUNet params tree as numpy, converted with
-    ``jax_plain_unet_to_torch``.  ``stage_times`` as in
-    :class:`AttAsppEngine` ("preprocess", "forward", "postprocess")."""
+    ``jax_plain_unet_to_torch``.  ``devices`` as in :class:`AttAsppEngine`:
+    enhancement and the sliding window run per shard, and the softmax stack
+    gathers on the primary device, where the 3-D postprocess needs all of
+    it.  ``stage_times`` as in :class:`AttAsppEngine` ("preprocess",
+    "forward", "postprocess")."""
 
     def __init__(self, cfg: Config, model, device="cuda",
-                 stage_times: Optional[Dict[str, float]] = None):
+                 stage_times: Optional[Dict[str, float]] = None,
+                 devices=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device, self.devices = _resolve(device, devices)
         if not isinstance(model, PlainConvUNet):
             model = jax_plain_unet_to_torch(model, cfg.plain_unet)
         # on a card the conv kernels channel-last too, so that cuDNN keeps
@@ -709,6 +775,7 @@ class BaselineEngine:
         fmt = (torch.channels_last if self.device.type == "cuda"
                else torch.preserve_format)
         self.model = model.to(self.device, memory_format=fmt).eval()
+        self.models = _replicas(self.model, self.devices, fmt)
         self.stage_times = stage_times
         self._t = 0.0
 
@@ -719,19 +786,35 @@ class BaselineEngine:
         """Raw (N, H, W) sweep -> (C, N, H, W) f32 softmax probabilities on
         the device: enhancement at native resolution (one CLAHE over the
         whole stack), then the tiled, mirrored forward."""
-        p, pu = self.cfg.preprocess, self.cfg.plain_unet
         self._mark()
         if not isinstance(sweep, torch.Tensor):
             sweep = torch.as_tensor(np.asarray(sweep))
-        x = preprocess_sweep(sweep.to(self.device), None, p.clahe_clip,
-                             p.clahe_grid, p.median_kernel)
-        self._mark("preprocess")
-        probs = sliding_window_predict(
-            self.model, x, tuple(pu.patch_size), pu.tile_step,
-            pu.use_gaussian, pu.use_mirroring, pu.tile_batch, pu.mirror_batch)
+        probs = mesh.gather([self._probs(s) for s in mesh.split_frames(
+            sweep, self.devices, self._frames_per_batch(sweep.shape[-2:]))],
+            self.device)
         probs = probs.transpose(0, 1).contiguous()
         self._mark("forward")
         return probs
+
+    def _frames_per_batch(self, hw) -> int:
+        """Frames from one tile micro-batch boundary to the next: shards cut
+        there batch their tiles as the one-device engine does."""
+        pu = self.cfg.plain_unet
+        T = 1
+        for n, tile in zip(hw, pu.patch_size):
+            T *= len(compute_tile_starts(int(n), tile, pu.tile_step))
+        return pu.tile_batch // math.gcd(T, pu.tile_batch)
+
+    def _probs(self, sweep: torch.Tensor) -> torch.Tensor:
+        """(n, C, H, W) softmax of frames on one device, by its model."""
+        p, pu = self.cfg.preprocess, self.cfg.plain_unet
+        x = preprocess_sweep(sweep, None, p.clahe_clip, p.clahe_grid,
+                             p.median_kernel)
+        self._mark("preprocess")
+        return sliding_window_predict(
+            self.models[sweep.device], x, tuple(pu.patch_size),
+            pu.tile_step, pu.use_gaussian, pu.use_mirroring, pu.tile_batch,
+            pu.mirror_batch)
 
     @torch.no_grad()
     def postprocess(self, probabilities) -> torch.Tensor:
@@ -771,6 +854,26 @@ def resize_mask_to(mask: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
         return (mask > 0).astype(np.uint8)
     out = resize_nearest(torch.from_numpy(mask), tuple(hw))
     return (out.numpy() > 0).astype(np.uint8)
+
+
+def _take_frames(shards: List[torch.Tensor], idx: torch.Tensor
+                 ) -> torch.Tensor:
+    """Frames ``idx`` (on the primary device) of the stack that ``shards``
+    (contiguous, all but the last of one length) form, on the primary
+    device: each shard contributes the frames it holds and zeros elsewhere,
+    so that only len(idx) frames per shard cross devices and nothing waits
+    for the host."""
+    if len(shards) == 1:
+        return shards[0][idx]
+    per, out = shards[0].shape[0], None
+    for d, s in enumerate(shards):
+        local = idx.to(s.device) - d * per
+        mine = (local >= 0) & (local < s.shape[0])
+        rows = s[local.clamp(0, s.shape[0] - 1)] \
+            * mine[:, None, None].to(s.dtype)
+        rows = rows.to(idx.device)
+        out = rows if out is None else out + rows
+    return out
 
 
 def _threshold(probs: torch.Tensor, thr: float) -> torch.Tensor:

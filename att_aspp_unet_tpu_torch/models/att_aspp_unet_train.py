@@ -55,7 +55,8 @@ class AttentionASPPUNetTrain(nn.Module):
         self.out_conv = Conv(c, cfg.num_classes, 1, bias=True, **kw)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator = None):
-        """Logits (B, num_classes, S, S) f32 and ``[psi3, psi2]``, the
+        """Logits (B, num_classes, S, S) f32 (f64 for an f64 model) and
+        ``[psi3, psi2]``, the
         attention maps of u4 and u3.  ``generator`` (on the input's device)
         draws the Dropout masks in training mode."""
         S1, S2 = x.shape[-2], x.shape[-1]
@@ -77,4 +78,6 @@ class AttentionASPPUNetTrain(nn.Module):
         d, psi2 = self.u3(d, x3)
         d, _ = self.u2(d, x2)
         d, _ = self.u1(d, x1)
-        return self.out_conv(d).to(torch.float32), [psi3, psi2]
+        logits = self.out_conv(d)
+        return logits.to(torch.promote_types(self.dtype, torch.float32)), \
+            [psi3, psi2]

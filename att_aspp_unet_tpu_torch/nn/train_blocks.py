@@ -20,9 +20,13 @@ and its result cast to the compute dtype, written as flax writes it and
 differentiated by autograd.  (PyTorch's fused batch-norm kernels, fed these
 statistics, lost up to 2 % of the gradient of a BN whose per-channel sums
 nearly cancel, where this formula stays within 4e-5 of the f64 gradient;
-it costs some twenty elementwise passes per BN and step instead.)  Dropout
-draws its keep mask from an explicit generator and scales the kept values
-by 1 / (1 - rate).
+it costs some twenty elementwise passes per BN and step instead.)  Under a
+data-parallel process group (``parallel/mesh.py``) the statistics are the
+global batch's: each rank's sums of x and x^2 and its count are summed over
+the ranks, differentiably, so that the running buffers agree on every rank
+without a broadcast.  Dropout draws its keep mask from an explicit generator
+(for the global batch, each rank keeping its rows) and scales the kept
+values by 1 / (1 - rate).
 
 Activations and conv kernels are channel-last in memory (the layout cuDNN's
 bf16 convolutions take without a conversion); the one-channel input is
@@ -36,6 +40,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.mesh import all_reduce_sum, group_size, shard_rows
 
 F32 = torch.float32
 MOMENTUM, EPSILON = 0.9, 1e-5
@@ -99,11 +105,21 @@ class BatchNorm(nn.Module):
         # broadcast along the contiguous last dimension (vectorised kernels)
         xf = x.permute(0, 2, 3, 1).to(torch.promote_types(x.dtype, F32))
         if self.training:
-            mean = xf.mean(dim=(0, 1, 2))
+            if group_size() > 1:
+                # the global batch's statistics: sums and count over the
+                # ranks, differentiable, then the same formula
+                C = xf.shape[-1]
+                cnt = xf.new_full((1,), xf.numel() // C)
+                tot = all_reduce_sum(torch.cat([xf.sum(dim=(0, 1, 2)),
+                                                (xf * xf).sum(dim=(0, 1, 2)),
+                                                cnt]))
+                mean, ex2 = tot[:C] / tot[-1], tot[C:2 * C] / tot[-1]
+            else:
+                mean = xf.mean(dim=(0, 1, 2))
+                ex2 = (xf * xf).mean(dim=(0, 1, 2))
             # maximum, not clamp: a tie at 0 splits the gradient as
             # jnp.maximum's does
-            var = torch.maximum((xf * xf).mean(dim=(0, 1, 2)) - mean * mean,
-                                xf.new_zeros(()))
+            var = torch.maximum(ex2 - mean * mean, xf.new_zeros(()))
             with torch.no_grad():
                 self.mean.copy_(MOMENTUM * self.mean
                                 + (1 - MOMENTUM) * mean.detach())
@@ -123,8 +139,11 @@ def dropout(x, rate: float, training: bool,
     if not training or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < keep_prob
+    # drawn for the global batch, this rank keeping its rows: a data-parallel
+    # run draws the one-process run's mask
+    shape = (x.shape[0] * group_size(),) + tuple(x.shape[1:])
+    keep = shard_rows(torch.rand(shape, generator=generator,
+                                 device=x.device)) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 

@@ -166,12 +166,14 @@ _SOBEL_Y = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
 
 
 def sobel_gradients(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """3x3 Sobel gradient pair (gx, gy) in f32 with zero padding, on
-    ``(..., H, W)`` inputs: the reference EdgeLoss's ``F.conv2d(p, k,
-    padding=1)``, summed tap by tap in the JAX package's order."""
+    """3x3 Sobel gradient pair (gx, gy) in f32 (f64 for f64 inputs) with zero
+    padding, on ``(..., H, W)`` inputs: the reference EdgeLoss's
+    ``F.conv2d(p, k, padding=1)``, summed tap by tap in the JAX package's
+    order."""
     lead = x.shape[:-2]
     H, W = x.shape[-2], x.shape[-1]
-    xp = F.pad(x.to(torch.float32).reshape((-1, H, W)), (1, 1, 1, 1))
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    xp = F.pad(x.reshape((-1, H, W)), (1, 1, 1, 1))
 
     def corr(k):
         return sum(k[i][j] * xp[:, i:i + H, j:j + W]

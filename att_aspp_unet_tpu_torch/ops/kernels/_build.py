@@ -5,12 +5,15 @@ shared library with a plain C interface, loaded with ``ctypes``.  The build
 happens at first use into ``att_aspp_unet_tpu_torch/build/`` (ignored by git);
 the library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and a stale library is never loaded.  :func:`build_all`
-starts one ``nvcc`` per source, all at once.
+starts one ``nvcc`` per source, all at once, under a file lock: processes
+that need the kernels at the same time (data-parallel ranks, test workers)
+compile each source once, the later ones finding the library built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -52,7 +55,6 @@ def _start(name: str):
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
            str(CSRC_DIR / f"{name}.cu")]
@@ -77,8 +79,12 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
     log (``-Xptxas -v``: registers, shared memory, spills) per source that
     was built."""
     with _lock:
-        jobs = {n: _start(n) for n in names}
-        return {n: _finish(n, j) for n, j in jobs.items() if j is not None}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / "kernels.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            jobs = {n: _start(n) for n in names}
+            return {n: _finish(n, j) for n, j in jobs.items()
+                    if j is not None}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,5 @@
-"""Training loop, the counterpart of ``att_aspp_unet_tpu/train/train_loop.py``
-on one device: AdamW (optax's, written out) with a 5 % warmup in epochs then
+"""Training loop, the counterpart of ``att_aspp_unet_tpu/train/train_loop.py``:
+AdamW (optax's, written out) with a 5 % warmup in epochs then
 cosine, global-norm gradient clip 1.0 (per group under the differential
 learning rate), early stop after 15 epochs without a better val Dice, best
 and last checkpoints with resume from ``last``, and the per-epoch CSV.
@@ -18,6 +18,16 @@ moments and the step, with the JAX package's ``.extra.json`` side file; it
 is not an Orbax directory.  The layout under ``output_dir`` is the JAX
 package's: ``ckpt_main/`` (or ``ckpt_finetune/``) with ``best``, ``last``
 and ``metrics.csv``.
+
+Data parallelism (``parallel/mesh.py``): :func:`fit` on several devices runs
+one process per device (:func:`fit_rank` on each), as the JAX package's
+``fit`` shards the batch over every device the batch size admits.  Each rank
+takes its contiguous rows of every global batch; the augmentation parameters
+and Dropout masks are drawn for the global batch and sliced, BatchNorm's
+statistics and the losses are the global batch's, and the gradients are
+summed over the ranks before AdamW, so that a D-rank run computes the
+one-process run's steps.  Rank 0 alone writes the files; every rank resumes
+from ``last``.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import dataclasses
 import json
 import os
 import pickle
+import tempfile
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
@@ -39,6 +50,7 @@ from ..config import Config, ModelConfig, TrainConfig
 from ..device import resolve_device
 from ..models.att_aspp_unet_train import AttentionASPPUNetTrain
 from ..ops.kernels.fused_conv import exact_f32
+from ..parallel import mesh
 from ..utils.convert import init_variables as seeded_init
 from ..utils.convert import jax_variables_to_train_model
 from .augment import augment_batch, sample_params
@@ -216,7 +228,9 @@ def loss_and_grads(state: TrainState, cfg: Config, x: torch.Tensor,
                    y: torch.Tensor, generator: Optional[torch.Generator] = None):
     """Forward in training mode (BatchNorm's running statistics update) and
     backward of the criterion on an augmented batch: (loss, logits,
-    gradients in the order of ``state.opt.params``)."""
+    gradients in the order of ``state.opt.params``).  Under a process group
+    ``x`` and ``y`` are this rank's rows, the loss is the global batch's and
+    so are the gradients returned (summed over the ranks here)."""
     model = state.model
     criterion = build_criterion(cfg.train.loss, cfg.train.stage)
     model.train()
@@ -224,7 +238,7 @@ def loss_and_grads(state: TrainState, cfg: Config, x: torch.Tensor,
         logits, _ = model(x, generator=generator)
         loss = criterion(logits, y)
         grads = torch.autograd.grad(loss, state.opt.params)
-    return loss, logits, list(grads)
+    return loss, logits, mesh.all_reduce_grads(list(grads))
 
 
 def train_step(state: TrainState, cfg: Config, images_u8, masks_u8,
@@ -233,13 +247,20 @@ def train_step(state: TrainState, cfg: Config, images_u8, masks_u8,
     """One update on a (B, S, S) uint8 batch (numpy or tensors): draw the
     augmentation of this step (or take ``aug_params``), augment on the
     device, forward and backward in training mode, AdamW.  Returns the
-    (loss, dice, iou) of the batch before the update, on the device."""
+    (loss, dice, iou) of the batch before the update, on the device.
+
+    Under a process group the batch is this rank's rows of the global batch
+    (:func:`parallel.mesh.shard_rows`); the parameters are drawn (or given)
+    for the global batch and sliced the same way."""
     dev = next(state.model.parameters()).device
     imgs, msks = _to_device(images_u8, dev), _to_device(masks_u8, dev)
     if aug_params is None:
         gen = torch.Generator().manual_seed(
             _stream_seed(cfg.train.seed, state.step, 0))
-        aug_params = sample_params(gen, *imgs.shape, cfg.train.augment)
+        B, H, W = imgs.shape
+        aug_params = sample_params(gen, B * mesh.group_size(), H, W,
+                                   cfg.train.augment)
+    aug_params = {k: mesh.shard_rows(v) for k, v in aug_params.items()}
     drop = torch.Generator(device=dev).manual_seed(
         _stream_seed(cfg.train.seed, state.step, 1))
     x, y = augment_batch(imgs, msks, cfg.train.augment, aug_params,
@@ -253,7 +274,8 @@ def train_step(state: TrainState, cfg: Config, images_u8, masks_u8,
 def eval_step(state: TrainState, cfg: Config, images_u8, masks_u8
               ) -> torch.Tensor:
     """(loss, dice, iou) of a val batch: the eval tail of the augmentation
-    (CLAHE + median-3), the forward with the running statistics."""
+    (CLAHE + median-3), the forward with the running statistics.  Under a
+    process group, of the global batch whose rows these are."""
     model = state.model
     dev = next(model.parameters()).device
     x, y = augment_batch(_to_device(images_u8, dev),
@@ -305,13 +327,63 @@ def load_checkpoint(path: Path, state: TrainState) -> Dict:
 
 def fit(cfg: Config, train_ds: ArrayDataset, val_ds: ArrayDataset,
         output_dir: Path, init_variables: Optional[dict] = None,
-        resume: bool = True, device="cuda",
+        resume: bool = True, device="cuda", devices=None,
         log: Callable[[str], None] = print) -> Dict[str, Any]:
     """Full training run; returns {"best_dice", "best_path", "epochs_run",
     "metrics_csv"}.  With ``resume`` and a ``last`` checkpoint under the
     stage's directory, model, optimizer and epoch are restored and the run
-    continues."""
+    continues.
+
+    ``devices`` (default: for ``device="cuda"``, every visible card that
+    ``make_mesh_for_batch`` admits for the batch size; else ``device``
+    alone) lists the data devices.  With more than one, one process per
+    device runs :func:`fit_rank` in a process group (NCCL over distinct
+    cards, gloo otherwise); ``log`` must then be picklable.  The kernels are
+    built before the ranks start, so that they do not compile side by
+    side."""
+    if devices is None:
+        dev = resolve_device(device)
+        devices = (mesh.make_mesh_for_batch(cfg.mesh, cfg.train.batch_size)
+                   if dev.type == "cuda" and dev.index is None else [dev])
+    devices = mesh.resolve_devices(devices)
+    if len(devices) == 1:
+        return fit_rank(cfg, train_ds, val_ds, output_dir, init_variables,
+                        resume, devices[0], log)
+    if cfg.train.batch_size % len(devices):
+        raise ValueError(f"batch {cfg.train.batch_size} does not split over "
+                         f"{len(devices)} devices")
+    if any(d.type == "cuda" for d in devices):
+        from ..ops.kernels import _build
+        _build.build_all()
+    with tempfile.TemporaryDirectory(prefix="fit_") as tmp:
+        result = Path(tmp) / "result.json"
+        mesh.run_ranks(_fit_worker, devices, cfg, train_ds, val_ds,
+                       str(output_dir), init_variables, resume, log,
+                       str(result))
+        return json.loads(result.read_text())
+
+
+def _fit_worker(rank: int, device: torch.device, cfg: Config, train_ds,
+                val_ds, output_dir: str, init_variables, resume: bool, log,
+                result: str) -> None:
+    out = fit_rank(cfg, train_ds, val_ds, Path(output_dir), init_variables,
+                   resume, device, log)
+    if rank == 0:
+        Path(result).write_text(json.dumps(out))
+
+
+def fit_rank(cfg: Config, train_ds: ArrayDataset, val_ds: ArrayDataset,
+             output_dir: Path, init_variables: Optional[dict] = None,
+             resume: bool = True, device="cuda",
+             log: Callable[[str], None] = print) -> Dict[str, Any]:
+    """The training run of one process on ``device``: the whole of it
+    without a process group, this rank's part under one (every rank returns
+    the same dict).  Train batches split over the ranks; an eval batch that
+    does not split (the ragged last one) runs whole on every rank."""
     tcfg = cfg.train
+    primary = mesh.is_primary()
+    if not primary:
+        log = _no_log
     steps_per_epoch = max(len(train_ds) // tcfg.batch_size, 1)
     state = create_train_state(cfg.model, tcfg, steps_per_epoch, device,
                                init_variables)
@@ -331,28 +403,43 @@ def fit(cfg: Config, train_ds: ArrayDataset, val_ds: ArrayDataset,
         log(f"resumed from {last_path} at epoch {start_epoch} "
             f"(best Dice {best:.4f})")
 
+    def val_batch(imgs, msks):
+        if len(imgs) % mesh.group_size():
+            with mesh.local():
+                return eval_step(state, cfg, imgs, msks)
+        return eval_step(state, cfg, mesh.shard_rows(imgs),
+                         mesh.shard_rows(msks))
+
     csv_path = out_dir / "metrics.csv"
     epochs_run = start_epoch - 1
-    with open(csv_path, "a" if start_epoch > 1 else "w", newline="") as f:
-        writer = csv.writer(f)
-        if start_epoch == 1:
+    with (open(csv_path, "a" if start_epoch > 1 else "w", newline="")
+          if primary else contextlib.nullcontext()) as f:
+        writer = csv.writer(f) if primary else None
+        if primary and start_epoch == 1:
             writer.writerow(["epoch", "train_loss", "val_loss", "train_dice",
                              "val_dice", "train_iou", "val_iou", "secs"])
         for epoch in range(start_epoch, tcfg.epochs + 1):
             t0 = time.time()
-            tr = [train_step(state, cfg, imgs, msks) for imgs, msks in
+            tr = [train_step(state, cfg, mesh.shard_rows(imgs),
+                             mesh.shard_rows(msks)) for imgs, msks in
                   epoch_batches(train_ds, tcfg.batch_size, tcfg.seed, epoch)]
-            va = [eval_step(state, cfg, imgs, msks) for imgs, msks in
+            va = [val_batch(imgs, msks) for imgs, msks in
                   epoch_batches(val_ds, tcfg.batch_size, tcfg.seed, epoch,
                                 shuffle=False, drop_last=False)]
-            # the epoch's one crossing to the host
-            tr_m = torch.stack(tr).mean(0).tolist() if tr else [0.0] * 3
-            va_m = torch.stack(va).mean(0).tolist() if va else [0.0] * 3
+            dev = next(state.model.parameters()).device
+            zeros = torch.zeros(3, device=dev)
+            # rank 0's numbers decide on every rank; the epoch's one
+            # crossing to the host
+            m = mesh.broadcast_from_primary(torch.cat([
+                torch.stack(tr).mean(0).float() if tr else zeros,
+                torch.stack(va).mean(0).float() if va else zeros]))
+            tr_m, va_m = m[:3].tolist(), m[3:].tolist()
             row = [epoch, tr_m[0], va_m[0], tr_m[1], va_m[1], tr_m[2],
                    va_m[2], round(time.time() - t0, 2)]
-            writer.writerow([f"{v:.6f}" if isinstance(v, float) else v
-                             for v in row])
-            f.flush()
+            if primary:
+                writer.writerow([f"{v:.6f}" if isinstance(v, float) else v
+                                 for v in row])
+                f.flush()
             val_dice = row[4]
             log(f"epoch {epoch}/{tcfg.epochs}  Dice {val_dice:.4f} | "
                 f"IoU {row[6]:.4f} | loss {row[2]:.4f}")
@@ -360,16 +447,23 @@ def fit(cfg: Config, train_ds: ArrayDataset, val_ds: ArrayDataset,
 
             if val_dice > best:
                 best, noimp = val_dice, 0
-                save_checkpoint(best_path, state, {"epoch": epoch,
-                                                   "val_dice": val_dice})
+                if primary:
+                    save_checkpoint(best_path, state,
+                                    {"epoch": epoch, "val_dice": val_dice})
                 log(f"best saved → {best_path}")
             else:
                 noimp += 1
-            save_checkpoint(last_path, state, {"epoch": epoch, "best": best,
-                                               "noimp": noimp})
+            if primary:
+                save_checkpoint(last_path, state, {"epoch": epoch,
+                                                   "best": best,
+                                                   "noimp": noimp})
             if noimp >= tcfg.early_stop_patience:
                 log("Early stop")
                 break
 
     return {"best_dice": best, "best_path": str(best_path),
             "epochs_run": epochs_run, "metrics_csv": str(csv_path)}
+
+
+def _no_log(msg: str) -> None:
+    pass

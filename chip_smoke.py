@@ -105,7 +105,18 @@ Phases (any failure exits non-zero and prints no result line):
    (equal bytes, ms), the contour tracer native against Python on the top-5
    candidates of the six sweeps (equal contours, us per trace), and a
    ``predict`` CLI call on a compressed 140-frame sweep that runs the native
-   codec and tracer.
+   codec and tracer;
+16. sharded (after the directory phase): ``AttAsppEngine(devices=...)`` on
+   the 140-frame sweep and the 840-frame case and ``BaselineEngine`` on the
+   sweep, over every visible card and over card 0 listed twice, against
+   the one-device engines (probabilities within 1e-5, frame, mask and AC
+   equal, launches the per-shard sums; frames/s);
+17. ddp (after the train phase): ``DDP_STEPS`` fixed-batch train steps at
+   the CLI's defaults (bf16) and in f64 at base_c 8, 128², in one process
+   and through the launcher of data-parallel training, (a) on the data axis
+   ``cli train --device cuda`` takes (NCCL) and (b) as two gloo ranks on
+   card 0: loss, BatchNorm buffers, parameters (and f64 gradients) against
+   the one process, ms per step, each rank's launch counts.
 
 Every path is driven with the launch counters at zero and must have launched
 the kernels it runs.  The line before the last is a JSON object with one
@@ -1739,9 +1750,11 @@ def phase_train(dev, sweep, best_true, thr, tmp, train_set, val_set):
     write_pairs(va, *val_set)
     n_tr, n_va = len(train_set[0]), len(val_set[0])
     per_epoch = n_tr // TRAIN_BATCH + -(-n_va // TRAIN_BATCH)
+    # card 0 by its index: one process, whose launches this process counts,
+    # also where several cards are visible ([ddp] drives those)
     base = ["train", "--train_dir", str(tr), "--val_dir", str(va),
             "--base_c", str(BASE_C), "--img_size", str(TRAIN_SIZE),
-            "--batch_size", str(TRAIN_BATCH), "--device", dev]
+            "--batch_size", str(TRAIN_BATCH), "--device", f"{dev}:0"]
     totals = {"fused_double_cbr": 0, "clahe_interp": 0}
 
     def train_cli(label, out, epochs_run, *extra):
@@ -2447,6 +2460,321 @@ def phase_native(dev, case, sweeps, variables, thr, tmp):
     return launches
 
 
+def shard_sizes(n: int, devices, align: int):
+    """Frames per shard that ``parallel.mesh.split_frames`` cuts."""
+    from att_aspp_unet_tpu_torch.parallel.mesh import pad_to_multiple
+
+    per = pad_to_multiple(n, len(devices) * align) // len(devices)
+    return [min(per, n - k * per) for k in range(len(devices))
+            if n - k * per > 0]
+
+
+def phase_sharded(dev, sweep, case, variables, thr, direct_engine):
+    """Frame-sharded serving: ``AttAsppEngine(devices=...)`` on the
+    140-frame sweep and the 840-frame case, and ``BaselineEngine`` on the
+    sweep, with every visible card as the data axis and with card 0 listed
+    twice (so that the split and the gather run on a card even where there
+    is one); against the one-device engines on the same card: probabilities
+    within 1e-5, frame, mask and AC equal, K1 / K2 launches the per-shard
+    sums; frames/s beside the one-device engine's."""
+    import numpy as np
+    import torch
+
+    from att_aspp_unet_tpu_torch.infer.container import \
+        select_labeled_mask_and_frame
+    from att_aspp_unet_tpu_torch.infer.engine import (AttAsppEngine,
+                                                      BaselineEngine)
+    from att_aspp_unet_tpu_torch.models import PlainConvUNet
+    from att_aspp_unet_tpu_torch.parallel.mesh import visible_devices
+
+    cards = visible_devices()
+    layouts = [(f"every card ({len(cards)})", cards),
+               ("card 0 twice", [cards[0]] * 2)]
+    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cfg = main_config()
+    one = direct_engine
+    one.stage_times = None
+    for data in (sweep, case):
+        n = label = data.shape[0]
+        p_one = one.predict_full(data)
+        (f1, m1, ac1), t1 = timed(lambda: one.predict_case(data, SPACING, thr))
+        t_one = [t1]
+        for name, devs in layouts:
+            eng = AttAsppEngine(cfg, variables, devices=devs)
+            sizes = shard_sizes(n, devs, cfg.predict.frame_batch)
+            expect = (sum(forward_launches(s, 16) for s in sizes), len(sizes))
+            eng.predict_case(data[:16], SPACING, thr)              # warm-up
+            reset_launches()
+            p = eng.predict_full(data)
+            add(read_launches(f"sharded predict_full {label}, {name}",
+                              expect))
+            err = float((p - p_one).abs().max())
+            reset_launches()
+            (f, m, ac), t = timed(lambda: eng.predict_case(data, SPACING,
+                                                           thr))
+            add(read_launches(f"sharded predict_case {label}, {name}",
+                              expect))
+            log(f"[sharded] att_aspp {label} frames, {name}: shards {sizes} "
+                f"on {[str(d) for d in devs]}; probabilities max |diff| "
+                f"{err:.3g} vs one device (tolerance 1e-5); predict_case "
+                f"frame {f} (one device {f1}), AC {ac:.4f} mm ({ac1:.4f}), "
+                f"masks equal {bool(np.array_equal(m, m1))}; {t:.3f} s = "
+                f"{n / t:.1f} frames/s; K1 {expect[0]}, K2 {expect[1]}")
+            if err > 1e-5 or f != f1 or ac != ac1 or \
+                    not np.array_equal(m, m1):
+                raise AssertionError(f"sharded {label}, {name}: the engine "
+                                     "disagrees with the one-device engine")
+            del eng, p
+        # the one-device engine before and after the sharded ones
+        t_one.append(timed(lambda: one.predict_case(data, SPACING, thr))[1])
+        log(f"[sharded] att_aspp {label} frames, one device: "
+            f"{t_one[0]:.3f} s before, {t_one[1]:.3f} s after = "
+            f"{n / t_one[1]:.1f} frames/s")
+        del p_one
+        torch.cuda.empty_cache()
+
+    bcfg = baseline_config()
+    pu = bcfg.plain_unet
+    base = BaselineEngine(bcfg, PlainConvUNet.from_config(
+        pu, seed=BASELINE_SEED), device=dev)
+    base.predict(sweep[:8])                                        # warm-up
+    p_one, t1 = timed(lambda: base.predict(sweep))
+    _, f1 = select_labeled_mask_and_frame(base.postprocess(p_one))
+    t_base = [t1]
+    for name, devs in layouts:
+        eng = BaselineEngine(bcfg, base.model, devices=devs)
+        sizes = shard_sizes(sweep.shape[0], devs,
+                            eng._frames_per_batch(sweep.shape[-2:]))
+        eng.predict(sweep[:8])
+        reset_launches()
+        p, t = timed(lambda: eng.predict(sweep))
+        add(read_launches(f"sharded baseline, {name}", (0, len(sizes))))
+        err = float((p - p_one).abs().max())
+        seg = eng.postprocess(p)
+        _, f = select_labeled_mask_and_frame(seg)
+        log(f"[sharded] baseline {sweep.shape[0]} frames, {name}: shards "
+            f"{sizes}; softmax max |diff| {err:.3g} vs one device "
+            f"(tolerance 1e-5), frame {f} (one device {f1}); {t:.3f} s = "
+            f"{sweep.shape[0] / t:.1f} frames/s; K2 {len(sizes)}")
+        if err > 1e-5 or f != f1:
+            raise AssertionError(f"sharded baseline, {name}: disagrees with "
+                                 "the one-device engine")
+        del eng, p, seg
+    t_base.append(timed(lambda: base.predict(sweep))[1])
+    log(f"[sharded] baseline {sweep.shape[0]} frames, one device: "
+        f"{t_base[0]:.3f} s before, {t_base[1]:.3f} s after = "
+        f"{sweep.shape[0] / t_base[1]:.1f} frames/s")
+    del base, p_one
+    torch.cuda.empty_cache()
+    return totals
+
+
+DDP_STEPS = 3
+
+
+def ddp_steps(cfg, imgs, msks, aug, device, n_steps=DDP_STEPS):
+    """``n_steps`` train steps on one fixed global batch from the seeded
+    init, this process holding its rows of it (one process: all): the loss
+    per step, the first step's gradients (f64 runs) and BatchNorm buffers,
+    the state dict after the last step, the median ms per step after the
+    first."""
+    import torch
+
+    from att_aspp_unet_tpu_torch.parallel.mesh import shard_rows
+    from att_aspp_unet_tpu_torch.train.train_loop import (TrainState,
+                                                          create_train_state,
+                                                          make_optimizer,
+                                                          train_step)
+
+    f64 = cfg.model.compute_dtype == "float64"
+    state = create_train_state(cfg.model, cfg.train, 1, device)
+    if f64:
+        state.model.double()
+        state = TrainState(state.model, make_optimizer(cfg.train, 1,
+                                                       state.model))
+    grads = []
+    update = state.opt.step
+
+    def record(g):
+        if f64 and not grads:
+            grads.append({n: t.double().cpu().clone() for n, t in
+                          zip(state.opt.names, g)})
+        update(g)
+
+    state.opt.step = record
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
+        else (lambda: None)
+    losses, times = [], []
+    for _ in range(n_steps):
+        sync()
+        t0 = time.perf_counter()
+        m = train_step(state, cfg, shard_rows(imgs), shard_rows(msks),
+                       aug_params=aug)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m[0]))
+        if len(losses) == 1:
+            bufs = {k: v.detach().cpu().clone() for k, v in
+                    state.model.named_buffers()}
+    return {"loss": losses, "grads": grads[0] if grads else None,
+            "buffers1": bufs,
+            "state": {k: v.detach().cpu() for k, v in
+                      state.model.state_dict().items()},
+            "ms": 1e3 * statistics.median(times[1:])}
+
+
+def ddp_rank(rank, device, cases, out):
+    """One rank of the [ddp] phase: every case, then the launch counts of
+    every rank gathered on rank 0; its results to ``<out>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as ci
+    from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as fc
+
+    reset_launches()
+    res = {name: ddp_steps(*c, device) for name, c in cases.items()}
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, (fc.fused_double_cbr.launches,
+                                    ci.clahe_interp.launches))
+    res["launches"] = counts
+    torch.save(res, Path(out) / f"rank{rank}.pt")
+
+
+def phase_ddp(dev, train_set):
+    """Data-parallel training at the CLI's defaults (base_c 48, 512², global
+    batch 8, bf16, augmentation on, ASPP dropout 0.1) and, exactly, in f64
+    at base_c 8, 128²: ``DDP_STEPS`` steps on one fixed global batch (one
+    augmentation draw) in one process on the card, then (a) through the
+    launcher on the data axis that ``cli train --device cuda`` takes (NCCL;
+    one rank on a one-card machine) and (b) in two gloo ranks sharing card
+    0 (NCCL refuses two ranks on one card).  Gates, with the [train]
+    phase's tolerances: f64 loss, first-step gradients and BatchNorm
+    buffers, and the buffers and parameters after the last step within 1e-4
+    of each leaf's max-abs; bf16 loss within 2e-2 relative, the first
+    step's BatchNorm buffers within 2e-2 of each leaf's max-abs (later ones
+    follow parameters that bf16 noise has moved apart), no parameter
+    further from the one-process run's than two AdamW trajectories can
+    diverge in ``DDP_STEPS`` steps; every rank's parameters and buffers
+    equal; K2 once per step on every rank.  Two ranks on one card time the
+    plumbing, not a speed-up."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from att_aspp_unet_tpu_torch.config import (Config, MeshConfig,
+                                                ModelConfig, TrainConfig)
+    from att_aspp_unet_tpu_torch.ops.image import resize_bilinear
+    from att_aspp_unet_tpu_torch.parallel.mesh import (backend_for,
+                                                       make_mesh_for_batch,
+                                                       run_ranks)
+    from att_aspp_unet_tpu_torch.train.augment import sample_params
+    from att_aspp_unet_tpu_torch.train.train_loop import make_lr_schedule
+
+    imgs, msks = (torch.as_tensor(a[:TRAIN_BATCH]) for a in train_set)
+    full = Config(model=ModelConfig(base_c=BASE_C),
+                  train=TrainConfig(batch_size=TRAIN_BATCH, epochs=1))
+    small = Config(model=ModelConfig(base_c=8, compute_dtype="float64"),
+                   train=TrainConfig(batch_size=TRAIN_BATCH, epochs=1))
+    u8 = resize_bilinear(imgs.float(), (128, 128)).round().clamp(
+        0, 255).to(torch.uint8)
+    m8 = torch.nn.functional.interpolate(
+        msks.float()[:, None], size=(128, 128), mode="nearest")[:, 0].to(
+            torch.uint8)
+
+    def draw(size):
+        return sample_params(torch.Generator().manual_seed(SEED),
+                             TRAIN_BATCH, size, size, full.train.augment)
+
+    cases = {f"bf16 base_c {BASE_C} {TRAIN_SIZE}^2":
+             (full, imgs, msks, draw(TRAIN_SIZE)),
+             "f64 base_c 8 128^2": (small, u8, m8, draw(128))}
+    one = {name: ddp_steps(*c, dev) for name, c in cases.items()}
+    torch.cuda.empty_cache()
+    # two runs whose gradients differ apart by bf16 rounding: each AdamW
+    # step moves an element by at most about 2 lr (|m| / sqrt(v) after the
+    # bias corrections, plus the weight decay), each run its own way
+    sched = make_lr_schedule(full.train, 1)
+    drift = 2 * 2 * sum(sched(k) for k in range(DDP_STEPS)) * \
+        (1 + full.train.weight_decay)
+
+    def worst(got, want):
+        return max((float((got[k].double() - w.double()).abs().max())
+                    / max(float(w.double().abs().max()), 1e-30), k)
+                   for k, w in want.items())
+
+    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    runs = [("(a) launcher", make_mesh_for_batch(MeshConfig(), TRAIN_BATCH)),
+            ("(b) two ranks on card 0", [torch.device(dev)] * 2)]
+    for label, devs in runs:
+        out = Path(tempfile.mkdtemp(prefix="ddp_"))
+        t0 = time.perf_counter()
+        run_ranks(ddp_rank, devs, cases, str(out))
+        wall = time.perf_counter() - t0
+        res = [torch.load(out / f"rank{r}.pt", weights_only=False)
+               for r in range(len(devs))]
+        shutil.rmtree(out)
+        counts = res[0]["launches"]
+        for k1, k2 in counts:
+            totals["fused_double_cbr"] += k1
+            totals["clahe_interp"] += k2
+        if any(c != (0, DDP_STEPS * len(cases)) for c in counts):
+            raise AssertionError(f"ddp {label}: launches per rank {counts}, "
+                                 f"expected (0, {DDP_STEPS * len(cases)})")
+        for name, want in one.items():
+            got = res[0][name]
+            same = all(torch.equal(r[name]["state"][k], got["state"][k])
+                       for r in res[1:] for k in got["state"])
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got["loss"],
+                                                          want["loss"]))
+            bufs = {k: v for k, v in want["state"].items()
+                    if k.endswith((".mean", ".var"))}
+            params = {k: v for k, v in want["state"].items() if k not in bufs}
+            e_buf1 = worst(got["buffers1"], want["buffers1"])
+            e_buf = worst({k: got["state"][k] for k in bufs}, bufs)
+            e_par = worst({k: got["state"][k] for k in params}, params)
+            d_par = max(float((got["state"][k].double() - v.double()).abs()
+                              .max()) for k, v in params.items())
+            line = (f"[ddp] {label}, {name}: {len(devs)} rank(s), "
+                    f"{backend_for(devs)}, launcher wall {wall:.1f} s; loss "
+                    f"{['%.6f' % v for v in got['loss']]} vs one process "
+                    f"{['%.6f' % v for v in want['loss']]} (max rel "
+                    f"{rel:.2e}); BN buffers after step 1 {e_buf1[0]:.2e} at "
+                    f"{e_buf1[1]}, after step {DDP_STEPS} {e_buf[0]:.2e} at "
+                    f"{e_buf[1]}, parameters {e_par[0]:.2e} at {e_par[1]} of "
+                    f"the leaf's max-abs (max |diff| {d_par:.2e})")
+            if want["grads"] is not None:
+                e_g = worst(got["grads"], want["grads"])
+                line += f", first-step gradients {e_g[0]:.2e} at {e_g[1]}"
+                ok = max(rel, e_buf1[0], e_buf[0], e_par[0], e_g[0]) <= 1e-4
+            else:
+                line += f" (AdamW drift bound {drift:.2e})"
+                ok = rel <= 2e-2 and e_buf1[0] <= 2e-2 and d_par <= drift
+            log(line + f"; ranks equal {same}; {got['ms']:.2f} ms per step "
+                f"(one process {want['ms']:.2f} ms); launches per rank "
+                f"{counts}")
+            if not (ok and same):
+                raise AssertionError(f"ddp {label}, {name}: the ranks "
+                                     "disagree with the one-process run")
+    log(f"[ddp] cli train --device cuda takes {len(runs[0][1])} data "
+        f"device(s) here ({[str(d) for d in runs[0][1]]}): the [train] "
+        f"phase's CLI runs are its one-card form")
+    return totals
+
+
 def host_library(name: str) -> str:
     """The version of a host library (without importing it), or
     "missing"."""
@@ -2534,7 +2862,11 @@ def main() -> int:
         add(launches)
         add(phase_bulk(dev, sweeps, thr, cascade_engine))
         add(phase_directory(sweeps, thr, tmp, direct_engine, cascade_engine))
-        del direct_engine, cascade_engine
+        del cascade_engine
+        torch.cuda.empty_cache()
+        add(phase_sharded(dev, sweeps[0], np.concatenate(sweeps), variables,
+                          thr, direct_engine))
+        del direct_engine
         torch.cuda.empty_cache()
         add(phase_variants(dev, sweeps[0], bests[0], thr, tmp))
         add(phase_calibrate(dev, val, tmp))
@@ -2547,6 +2879,8 @@ def main() -> int:
         add(phase_baseline(dev, sweeps[0], case, tmp))
         torch.cuda.empty_cache()
         add(phase_train(dev, sweeps[0], bests[0], thr, tmp, *train_sets))
+        torch.cuda.empty_cache()
+        add(phase_ddp(dev, train_sets[0]))
         torch.cuda.empty_cache()
         add(phase_compat(dev, case, sweeps, variables, tmp))
         add(phase_entry(dev, case, sweeps, tmp))

@@ -382,3 +382,29 @@ def test_train_step_on_the_card_matches_the_cpu(rng, cuda_device):
         scale = float(r.abs().max())
         own = float((b - r).abs().max())
         assert float((a - b).abs().max()) <= 1e-3 * scale + 2 * own
+
+
+@pytest.mark.cuda
+def test_kernels_on_the_last_card_while_the_current_is_card_0(rng,
+                                                              cuda_device):
+    """K1 and K2 on tensors of the last visible card with ``cuda:0`` current
+    (where one process serving over several cards first breaks): each
+    launches on its input's card and equals its plain version.  With one
+    card, the last is card 0."""
+    from att_aspp_unet_tpu_torch.ops.clahe import clahe_tables
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    with torch.cuda.device(0):
+        args = _pair_args(rng, last, 4, 96, 96, 96, 64, 64)
+        got = _assert_kernel_matches_plain(args)
+        assert got.device == last
+        u8 = torch.from_numpy(rng.integers(0, 256, (8, 562, 744))
+                              .astype(np.uint8)).to(last)
+        blocks, luts, wts = clahe_tables(u8)
+        before = tci.clahe_interp.launches
+        out = tci.clahe_interp(blocks, luts, wts)
+        torch.cuda.synchronize(last)
+        assert tci.clahe_interp.launches == before + 1
+        assert out.device == last
+        assert torch.equal(out, tci.clahe_interp_reference(blocks, luts, wts))
+        assert torch.cuda.current_device() == 0
