@@ -15,8 +15,10 @@ PNG / JPG frames and ``.mha`` sweeps with the JAX package's ``predict``
 flags (``--weights``, ``--input_dir``, ``--out_dir``, ``--thr``,
 ``--no_tta``, ``--spacing_json``, ``--cascade``, ``--bulk N``, the
 ``--scout_*`` flags, ``--slice_metrics``, ``--topk_viz``, ``--viz_att``,
-``--weights_noatt``).  hflip TTA is on unless ``--no_tta``, as in the
-reference predict CLI.
+``--weights_noatt``, ``--int8``).  hflip TTA is on unless ``--no_tta``, as
+in the reference predict CLI.  ``--int8`` (``predict`` and
+``infer-container``) serves the 3x3 ConvBNReLU convs post-training-quantized
+to int8 (``nn/quant.py``, kernel K3), calibrated on the first sweep.
 
 ``python -m att_aspp_unet_tpu_torch.cli calibrate`` scans thresholds over
 ``<val_dir>/images/*.png`` against ``<val_dir>/masks`` and writes
@@ -59,8 +61,15 @@ volume pairs to PNG frames with negative sampling), ``split`` (seeded
 train / val split), ``leak-check`` (exit 1 when a file is in both sets) and
 ``dataset-report`` (split statistics, LaTeX table).  Their figures need
 matplotlib; without it each figure is skipped with a ``[warn]`` line and the
-tables are written all the same.  ``cli warm`` of the JAX package (XLA
-compile caches) is not ported.
+tables are written all the same.
+
+``python -m att_aspp_unet_tpu_torch.cli warm`` prepares a deployment so
+that its first case pays no build: it builds the CUDA kernels (K1, K2, K3;
+``nvcc``, on a card) and the host ops (``g++``) into the package's build
+directory, then serves one all-zero sweep per ``--shapes`` entry through
+``predict_case`` (and a ``--bulk N`` group) with the JAX package's flags.
+The JAX package's ``--export-aot``, ``--roi``, ``--c1_pad`` and
+``--lowering`` (XLA executables and TPU-only lowerings) are refused.
 """
 
 from __future__ import annotations
@@ -72,19 +81,51 @@ import sys
 from pathlib import Path
 
 from .config import (CalibrateConfig, Config, ContainerConfig, LossConfig,
-                     ModelConfig, PredictConfig, TrainConfig)
+                     ModelConfig, PredictConfig, PreprocessConfig,
+                     TrainConfig)
 
 
 def _config(args, **parts) -> Config:
     """The configuration of the model flags (and ``parts``); with
-    ``--deterministic`` the RNGs are reseeded (``--seed``, default 2025)."""
+    ``--deterministic`` the RNGs are reseeded (``--seed``, default 2025);
+    ``--int8`` serves the int8 path."""
     if args.deterministic:
         from .utils.seeding import set_seed
         set_seed(getattr(args, "seed", 2025))
     model = ModelConfig(base_c=args.base_c, use_att=not args.no_att,
                         use_aspp=not args.no_aspp, att_depth=args.att_depth,
-                        gate_variant=args.gate)
+                        gate_variant=args.gate,
+                        conv_lowering=("int8" if getattr(args, "int8", False)
+                                       else "direct"))
     return Config(model=model, **parts)
+
+
+def _serving_predict_config(args, tta: bool) -> PredictConfig:
+    """The ``PredictConfig`` of the serving flags (``--cascade``, ``--bulk``
+    and the ``--scout_*`` flags), refusing combinations that would be
+    silently ignored."""
+    if args.bulk == 1 or args.bulk < 0:
+        # 1 would silently serve the per-case path while the user believes
+        # groups are active
+        raise SystemExit("--bulk takes a group size >= 2 (or 0 to disable)")
+    if not args.cascade:
+        # the scout flags only affect the cascade's tier-1 ranking; without
+        # --cascade they would be silently ignored
+        for flag in ("scout_weights", "scout_thr", "scout_base_c",
+                     "scout_no_clahe"):
+            if getattr(args, flag):
+                raise SystemExit(f"--{flag} requires --cascade")
+        if args.scout_rank != "refined":
+            raise SystemExit("--scout_rank requires --cascade")
+        if args.bulk:
+            raise SystemExit("--bulk requires --cascade")
+    return PredictConfig(
+        tta_hflip=tta, cascade=args.cascade,
+        cascade_scout_weights=args.scout_weights,
+        cascade_scout_base_c=args.scout_base_c,
+        cascade_scout_thr=args.scout_thr,
+        cascade_scout_clahe=False if args.scout_no_clahe else None,
+        cascade_scout_rank=args.scout_rank)
 
 
 def load_variables(path, cfg: ModelConfig) -> dict:
@@ -144,28 +185,8 @@ def load_baseline(weights, cfg: Config):
 def cmd_predict(args) -> int:
     from .infer.predict_cli import predict_directory
 
-    if args.bulk == 1 or args.bulk < 0:
-        # 1 would silently serve the per-case path while the user believes
-        # groups are active
-        raise SystemExit("--bulk takes a group size >= 2 (or 0 to disable)")
-    if not args.cascade:
-        # the scout flags only affect the cascade's tier-1 ranking; without
-        # --cascade they would be silently ignored
-        for flag in ("scout_weights", "scout_thr", "scout_base_c",
-                     "scout_no_clahe"):
-            if getattr(args, flag):
-                raise SystemExit(f"--{flag} requires --cascade")
-        if args.scout_rank != "refined":
-            raise SystemExit("--scout_rank requires --cascade")
-        if args.bulk:
-            raise SystemExit("--bulk requires --cascade")
-    cfg = _config(args, predict=PredictConfig(
-        tta_hflip=not args.no_tta, cascade=args.cascade,
-        cascade_scout_weights=args.scout_weights,
-        cascade_scout_base_c=args.scout_base_c,
-        cascade_scout_thr=args.scout_thr,
-        cascade_scout_clahe=False if args.scout_no_clahe else None,
-        cascade_scout_rank=args.scout_rank))
+    cfg = _config(args, predict=_serving_predict_config(args,
+                                                        not args.no_tta))
     noatt = None
     if args.weights_noatt:
         # the comparison model of the attention panels: gate-free with
@@ -180,6 +201,71 @@ def cmd_predict(args) -> int:
                       threshold=args.thr, slice_metrics=args.slice_metrics,
                       topk_viz=args.topk_viz, viz_att=args.viz_att,
                       noatt=noatt, bulk_group=args.bulk, device=args.device)
+    return 0
+
+
+# The JAX CLI's warm flags that the port does not take, with the reason.
+WARM_REFUSED = {
+    "--export-aot": "serializes XLA executables; the port runs eagerly and "
+                    "has none (ROADMAP item 10)",
+    "--roi": "only chooses what --export-aot serializes",
+    "--c1_pad": "a TPU-only channel padding (ROADMAP item 10)",
+    "--lowering": "TPU-only lowerings (ROADMAP item 10); --int8 is the int8 "
+                  "path",
+}
+
+
+def cmd_warm(args) -> int:
+    """Build what a deployment's first case would otherwise build, then
+    serve one all-zero sweep per declared shape (and a ``--bulk`` group)."""
+    import time
+
+    import numpy as np
+
+    from .device import resolve_device
+    from .infer.engine import AttAsppEngine
+    from .infer.predict_cli import load_threshold
+    from .ops.kernels import _build
+    from .utils import native
+
+    for flag, why in WARM_REFUSED.items():
+        if getattr(args, flag.lstrip("-").replace("-", "_")):
+            raise SystemExit(f"{flag} is not taken: {why}")
+    cfg = _config(args, preprocess=PreprocessConfig(img_size=args.img_size),
+                  predict=_serving_predict_config(args, bool(args.tta)))
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        built = _build.build_all()
+        print(f"[warm] kernels {', '.join(_build.KERNEL_SOURCES)}: built "
+              f"{sorted(built) or 'none'} in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ok = native.available()
+    print(f"[warm] host ops: {'ready' if ok else 'unavailable'} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    if args.weights:
+        variables = load_variables(args.weights, cfg.model)
+    else:
+        from .utils.convert import init_variables
+        variables = init_variables(cfg.model, 0)
+    engine = AttAsppEngine(cfg, variables, device=device)
+    # the threshold a deployment serves: --thr, else thr.json, else the
+    # configured one (as predict resolves it)
+    thr = (float(args.thr) if args.thr is not None
+           else load_threshold(cfg, Path(args.thr_json)))
+    for spec in args.shapes.split(","):
+        n, h, w = (int(t) for t in spec.lower().split("x"))
+        t0 = time.perf_counter()
+        engine.predict_case(np.zeros((n, h, w), np.uint8), (0.28, 0.28),
+                            threshold=thr)
+        print(f"[warm] {spec}: thr {thr:.3f} ran in "
+              f"{time.perf_counter() - t0:.1f}s")
+        if args.bulk > 1:
+            t0 = time.perf_counter()
+            engine.predict_bulk(np.zeros((args.bulk, n, h, w), np.uint8),
+                                (0.28, 0.28), threshold=thr)
+            print(f"[warm] bulk {args.bulk}x{spec}: thr {thr:.3f} ran in "
+                  f"{time.perf_counter() - t0:.1f}s")
     return 0
 
 
@@ -442,6 +528,10 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("refined", "closed"),
                     help="tier-1 rank key: refined-area proxy (default) or "
                          "closed area only")
+    pr.add_argument("--int8", action="store_true",
+                    help="serve the forward's 3x3 convs on the int8 tensor "
+                         "cores (post-training quantization, auto-calibrated; "
+                         "nn/quant.py)")
     _common_flags(pr)
     pr.set_defaults(fn=cmd_predict)
 
@@ -514,8 +604,54 @@ def build_parser() -> argparse.ArgumentParser:
     ic.add_argument("--no-debug-frames", action="store_true",
                     help="do not write three frames as raw and enhanced "
                          "PNGs (writing them needs PIL)")
+    ic.add_argument("--int8", action="store_true",
+                    help="att_aspp tag: serve the forward's 3x3 convs on the "
+                         "int8 tensor cores (post-training quantization, "
+                         "nn/quant.py)")
     _common_flags(ic)
     ic.set_defaults(fn=cmd_infer_container)
+
+    wm = sp.add_parser("warm", help="build the kernels and the host ops and "
+                       "serve one zero sweep per declared shape, so that a "
+                       "deployment's first case pays no build")
+    wm.add_argument("--shapes", default="140x562x744",
+                    help="comma list of NxHxW sweep shapes to serve once")
+    wm.add_argument("--weights", help="optional weights (random init "
+                    "without; shapes, not values, matter here)")
+    wm.add_argument("--cascade", action="store_true")
+    wm.add_argument("--scout_weights", default=None,
+                    help="warm the distilled-scout cascade (same flag as "
+                         "predict)")
+    wm.add_argument("--scout_base_c", type=int, default=None,
+                    help="scout width; default reads base_c from the "
+                         "summary.json next to --scout_weights (fallback 16)")
+    wm.add_argument("--scout_thr", type=float, default=0.0,
+                    help="scout ranking threshold (0 = from the thr.json "
+                         "next to --scout_weights, as predict)")
+    wm.add_argument("--scout_no_clahe", action="store_true",
+                    help="match a deployment serving --scout_no_clahe")
+    wm.add_argument("--scout_rank", default="refined",
+                    choices=("refined", "closed"),
+                    help="match the deployment's tier-1 rank key")
+    wm.add_argument("--bulk", type=int, default=0,
+                    help="also serve a predict --bulk N group per shape "
+                         "(requires --cascade)")
+    wm.add_argument("--thr", type=float, default=None,
+                    help="serving threshold; default resolves thr.json as "
+                         "predict does")
+    wm.add_argument("--thr_json", default="./checkpoints/thr.json")
+    wm.add_argument("--int8", action="store_true",
+                    help="warm the int8 path (calibrated on the zero sweep)")
+    wm.add_argument("--tta", action="store_true")
+    wm.add_argument("--img-size", type=int, default=512)
+    # the JAX CLI's flags that the port refuses (WARM_REFUSED)
+    wm.add_argument("--export-aot", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
+    wm.add_argument("--roi", action="store_true", help=argparse.SUPPRESS)
+    wm.add_argument("--c1_pad", type=int, default=0, help=argparse.SUPPRESS)
+    wm.add_argument("--lowering", default=None, help=argparse.SUPPRESS)
+    _common_flags(wm)
+    wm.set_defaults(fn=cmd_warm)
 
     es = sp.add_parser("eval-seg", help="Dice / IoU / HD95 of a new and a "
                        "baseline model's masks against GT masks")

@@ -19,11 +19,20 @@ class PreprocessConfig:
     img_size: int = 512          # network input H = W
 
 
+CONV_LOWERINGS = ("direct", "int8")
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     """Attention-ASPP-UNet: v1 gates (BN, on u4/u3/u2) or v2 gates (no BN,
     residual ``x*a + x``, on u4 when ``att_depth`` >= 4 and u3 when >= 3),
-    ASPP bridge or a single ConvBNReLU (``use_aspp=False``)."""
+    ASPP bridge or a single ConvBNReLU (``use_aspp=False``).
+
+    ``conv_lowering``: ``"direct"`` serves the 3x3 ConvBNReLU convs in the
+    compute dtype (kernel K1 per pair), ``"int8"`` post-training-quantized
+    (``nn/quant.py``, kernel K3 per conv).  The JAX package's TPU-only
+    lowerings (``w2d``, ``auto``, ``w2d_stage``) are not taken (ROADMAP
+    item 10)."""
 
     in_channels: int = 1
     num_classes: int = 1
@@ -35,6 +44,14 @@ class ModelConfig:
     aspp_rates: Tuple[int, ...] = (6, 12, 18)
     aspp_dropout: float = 0.1        # training only: the identity at eval
     compute_dtype: str = "bfloat16"   # "float32" for reference-precision runs
+    conv_lowering: str = "direct"    # or "int8"
+
+    def __post_init__(self):
+        if self.conv_lowering not in CONV_LOWERINGS:
+            raise ValueError(
+                f"conv_lowering {self.conv_lowering!r}: the port takes "
+                f"{' or '.join(CONV_LOWERINGS)}; the JAX package's TPU-only "
+                "lowerings are not ported (ROADMAP Queue A item 10)")
 
 
 @dataclass(frozen=True)
@@ -99,6 +116,9 @@ class PredictConfig:
     cascade_scout_clahe: Optional[bool] = None
     cascade_scout_rank: str = "refined"   # or "closed": no hole-fill proxy
     cascade_scout_thr: float = 0.0
+    # int8 serving (ModelConfig.conv_lowering="int8"): evenly spaced frames
+    # of the first sweep whose forward calibrates the activation scales
+    quant_calib_frames: int = 16
 
 
 @dataclass(frozen=True)

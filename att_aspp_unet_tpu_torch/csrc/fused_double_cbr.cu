@@ -7,7 +7,10 @@
 //   y = relu(s2 * conv3x3(h, w2) + b2)         written in bf16
 // x and y are (N, C, H, W) bf16 tensors in channel-last memory (NHWC strides);
 // the weights arrive prepacked (ops/kernels/fused_conv.py); scale/bias are f32
-// per channel; sums are f32.
+// per channel; sums are f32.  A calibration launch (of the int8 path,
+// nn/quant.py) also takes the max of h into one f32 (atomicMax on the bit
+// patterns of the bf16-rounded, non-negative values); it runs instantiations
+// of its own, so a served launch runs the code it ran before.
 //
 // What bounds it on an H100.  By the shapes alone every pair does 10^2-10^3
 // bf16 operations per byte it must move, far above the card's ~295 op/byte
@@ -89,6 +92,7 @@ struct Params {
   const float* s2;
   const float* b2;
   bf16* out;
+  float* absmax;    // calibration mode: max of the intermediate, else null
   int Cin, Cmid, Cout, H, W;
 };
 
@@ -143,6 +147,21 @@ __device__ __forceinline__ void stmatrix2_t(uint32_t addr, uint32_t r0,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The value stored in bf16, as f32.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Calibration mode: the CTA's largest intermediate value into *absmax.  The
+// values are non-negative (post-ReLU), so their f32 bit patterns order as
+// ints.  Every thread of the CTA calls it.
+__device__ __forceinline__ void absmax_commit(float* absmax, float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (threadIdx.x % 32 == 0)
+    atomicMax(reinterpret_cast<int*>(absmax), __float_as_int(v));
 }
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
@@ -379,7 +398,10 @@ __device__ __forceinline__ void mma_step_mt(int m_tiles, float acc[4][NTW][4],
   }
 }
 
-template <int TH, int KC>
+// CALIB: also the intermediate's largest value (calibration of the int8
+// path; an instantiation of its own, so that served launches run the code
+// they ran before).
+template <int TH, int KC, bool CALIB>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fused_double_cbr_kernel(const Params p) {
   using T = Tile<TH, KC>;
@@ -428,6 +450,7 @@ fused_double_cbr_kernel(const Params p) {
   };
 
   float acc[4][T::NTW][4];
+  float tmax = 0.f;   // CALIB: the largest intermediate value seen
 
   // tap-as-K: one K-chunk, staged once into stage 0 for every row block
   if (im2col)
@@ -516,11 +539,23 @@ fused_double_cbr_kernel(const Params p) {
             const int j = jj + k / 2 < T::NTW1 ? jj + k / 2 : jj, h = k % 2;
             float v[2];
 #pragma unroll
-            for (int e = 0; e < 2; ++e)
+            for (int e = 0; e < 2; ++e) {
               v[e] = in[k / 2][e]
                          ? fmaxf(fmaf(acc[mt][j][2 * h + e], sc_r[mt][h],
                                       bi_r[mt][h]), 0.f)
                          : 0.f;
+              if (CALIB) {
+                // the pixel whose sums these are (j, not jj + k / 2)
+                const int qa = (warp + NWARPS * j) * 8 + 2 * t + e;
+                const int ay = y0 - 1 + qa / T::MID_W,
+                          ax = x0 - 1 + qa % T::MID_W;
+                if (qa < T::P1 && ay >= 0 && ay < p.H && ax >= 0 &&
+                    ax < p.W)
+                  tmax = fmaxf(tmax, bf16_round(fmaxf(
+                      fmaf(acc[mt][j][2 * h + e], sc_r[mt][h], bi_r[mt][h]),
+                      0.f)));
+              }
+            }
             r[k] = pack_bf16(v[0], v[1]);
           }
           const uint32_t addr = keep ? row + mt * 32 : dump;
@@ -581,6 +616,7 @@ fused_double_cbr_kernel(const Params p) {
       // the next write to out_s comes after the next step's barrier
     }
   }
+  if (CALIB) absmax_commit(p.absmax, tmax);
 }
 
 template <int TH, int KC>
@@ -593,7 +629,8 @@ int launch(const Params& p, int N, cudaStream_t stream) {
   if (e != cudaSuccess) return (int)e;
   const size_t smem = smem_bytes<TH, KC>(p.Cmid);
   if (smem > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
-  auto kern = fused_double_cbr_kernel<TH, KC>;
+  auto kern = p.absmax != nullptr ? fused_double_cbr_kernel<TH, KC, true>
+                                  : fused_double_cbr_kernel<TH, KC, false>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -880,7 +917,7 @@ __host__ __device__ inline size_t wg_smem_bytes(int cmid) {
          WG_STAGES * sizeof(uint64_t) + 40;  // barriers, 16-byte dump slot
 }
 
-template <int TH>
+template <int TH, bool CALIB>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fused_double_cbr_wgmma_kernel(const Params p,
                               const __grid_constant__ CUtensorMap xmap) {
@@ -933,6 +970,7 @@ fused_double_cbr_wgmma_kernel(const Params p,
 
   // one accumulator set: conv1's n-half is the wider, conv2 uses the front
   float acc1[T::NH1 / 2];
+  float tmax = 0.f;   // CALIB: the largest intermediate value seen
   float (&acc2)[T::NH2 / 2] = reinterpret_cast<float (&)[T::NH2 / 2]>(acc1);
   static_assert(T::NH2 <= T::NH1, "conv2's accumulators fit in conv1's");
 
@@ -1044,6 +1082,9 @@ fused_double_cbr_wgmma_kernel(const Params p,
             v[e] = in ? fmaxf(fmaf(acc1[4 * j + 2 * h + e], sc_r[h], bi_r[h]),
                               0.f)
                       : 0.f;
+            // flat columns 18, 19 wrap and q >= N1 is past the tile
+            if (CALIB && in && q < T::N1 && q % T::IN_W < T::MID_W)
+              tmax = fmaxf(tmax, bf16_round(v[e]));
           }
           r[k] = pack_bf16(v[0], v[1]);
         }
@@ -1098,6 +1139,7 @@ fused_double_cbr_wgmma_kernel(const Params p,
     step_sync(s + 1);   // also: out_s is read before anyone writes it again
     load(s + 2);
   }
+  if (CALIB) absmax_commit(p.absmax, tmax);
 }
 
 // cuTensorMapEncodeTiled through the runtime, so that the library needs no
@@ -1154,7 +1196,8 @@ int launch_wgmma(const Params& p, int N, cudaStream_t stream) {
   CUtensorMap xmap;
   int me = make_input_map(&xmap, p, N, T::IN_W, T::IN_H);
   if (me != 0) return me;
-  auto kern = fused_double_cbr_wgmma_kernel<TH>;
+  auto kern = p.absmax != nullptr ? fused_double_cbr_wgmma_kernel<TH, true>
+                                  : fused_double_cbr_wgmma_kernel<TH, false>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -1170,12 +1213,14 @@ extern "C" {
 // Returns a cudaError_t (0 = launched).  x and out are channel-last
 // (N, H, W, C) device pointers aligned to 16 bytes; w1p and w2p are the
 // weights prepacked for this kc and path (wgmma: 1 for the warpgroup path and
-// its weight order, 0 for the mma.sync path); the stream is a cudaStream_t.
+// its weight order, 0 for the mma.sync path); absmax is null, or one f32 on
+// the device that takes the max of itself and of the intermediate (a
+// calibration launch); the stream is a cudaStream_t.
 int fused_double_cbr_launch(const void* x, const void* w1p, const void* s1,
                             const void* b1, const void* w2p, const void* s2,
                             const void* b2, void* out, int N, int Cin,
                             int Cmid, int Cout, int H, int W, int th, int kc,
-                            int wgmma, void* stream) {
+                            int wgmma, void* absmax, void* stream) {
   Params p;
   p.x = (const bf16*)x;
   p.w1p = (const bf16*)w1p;
@@ -1185,6 +1230,7 @@ int fused_double_cbr_launch(const void* x, const void* w1p, const void* s1,
   p.s2 = (const float*)s2;
   p.b2 = (const float*)b2;
   p.out = (bf16*)out;
+  p.absmax = (float*)absmax;
   p.Cin = Cin;
   p.Cmid = Cmid;
   p.Cout = Cout;

@@ -31,16 +31,27 @@ on the device, so a collect half that finds a record set repeats the work
 from that step on with the exact loops: never the upload, and no forward that
 came before the step.
 
-With ``devices`` (the counterpart of the JAX engines' ``mesh``), the direct
-path, the ROI path and the baseline split the frame axis into contiguous
-shards, one per data device, cut at micro-batch boundaries
-(``parallel/mesh.py``); each device runs enhancement (K2), the forward (K1,
-with its own copy of the model and its own prepacked weights) and the
-per-frame tail on its shard, and only what the rest of the path needs is
-gathered onto the primary device (the first of ``devices``): the
-probabilities, or the direct path's rank keys and its candidates' masks.
-Every micro-batch is the one-device engine's, so the results are too.  The
-cascade and the bulk path run on one device.
+With ``devices`` (the counterpart of the JAX engines' ``mesh``), every path
+splits the frame axis into contiguous shards, one per data device, cut at
+micro-batch boundaries (``parallel/mesh.py``); each device runs enhancement
+(K2), the forward (K1, with its own copy of the model and its own prepacked
+weights) and the per-frame tail on its shard, and only what the rest of the
+path needs is gathered onto the primary device (the first of ``devices``):
+the probabilities, or the rank keys and the candidates' masks.  The cascade
+and the bulk path split twice: the scout tier over all frames at scout
+micro-batch boundaries, promotion per sweep on the primary device from the
+gathered keys, then the promoted frames' tier-2 forward at tier-2
+micro-batch boundaries.  Every micro-batch is the one-device engine's, so
+the results are too.
+
+With ``ModelConfig.conv_lowering="int8"`` the model's 3x3 ConvBNReLU convs
+serve post-training-quantized (``nn/quant.py``, kernel K3).  Their
+activation scales come from the variables' ``quant`` collection or, without
+one, from a calibration forward of the direct model (K1 in its calibration
+mode) over ``quant_calib_frames`` evenly spaced frames of the first sweep
+the engine sees, preprocessed at ``img_size`` without TTA, on the primary
+device; every replica then carries the same int8 weights and scales.  The
+cascade's scout always serves direct.
 """
 
 from __future__ import annotations
@@ -62,6 +73,7 @@ from ..measure.ellipse import measure_ac_mm
 from ..models.plain_unet import PlainConvUNet
 from ..models.sliding_window import (compute_tile_starts,
                                      sliding_window_predict)
+from ..nn.quant import tree_set
 from ..parallel import mesh
 from ..ops.image import gaussian_blur, resize_bilinear, resize_nearest
 from ..postprocess import cc
@@ -74,7 +86,8 @@ from ..postprocess.select import (select_best_frame_exact,
                                   select_max_area_frame)
 from ..preprocess.enhance import enhance_frames, preprocess_sweep
 from ..preprocess.roi import crop_roi, paste_roi_probs
-from ..utils.convert import jax_plain_unet_to_torch, jax_variables_to_torch
+from ..utils.convert import (jax_plain_unet_to_torch, jax_variables_to_torch,
+                             quant_tree)
 from ..utils.npz_weights import load_npz_variables
 
 
@@ -199,7 +212,9 @@ def cascade_steps(model, n_valid: int, *, img_size: int, low_size: int,
                   scout_model=None, scout_thr: float = 0.0,
                   scout_clip: Optional[float] = None,
                   scout_rank: str = "refined",
-                  mark: Callable = _no_mark) -> List[Step]:
+                  mark: Callable = _no_mark,
+                  devices: Optional[List[torch.device]] = None
+                  ) -> List[Step]:
     """Two-tier cascade over an (S, N, H, W) stack of S independent
     same-shape sweeps on the device, as the steps of a device half: the one
     implementation behind the single-case cascade (S = 1) and the bulk path.
@@ -220,6 +235,12 @@ def cascade_steps(model, n_valid: int, *, img_size: int, low_size: int,
     CLAHE-enhanced frames); ``scout_rank="closed"`` ranks tier 1 by closed
     area only.
 
+    ``devices`` (the first the primary, where the stack lies) splits the
+    scout tier's S*N frames at ``scout_batch`` boundaries and the promoted
+    frames' tier-2 forward at ``batch`` boundaries; ``model`` and
+    ``scout_model`` are then dicts of one replica per device.  Promotion and
+    selection run on the primary device from the gathered rank keys.
+
     The steps: scout forward (sweeps -> thresholded scout masks), promote
     (fixed points in the rank key -> promoted indices), tier-2 forward
     (-> thresholded native masks), select (fixed points in the rank key and
@@ -228,6 +249,7 @@ def cascade_steps(model, n_valid: int, *, img_size: int, low_size: int,
     """
     if scout_model is None:
         scout_model = model
+    sb = scout_batch or batch
     if not scout_thr:
         scout_thr = threshold
     if scout_clip is not None and scout_clip <= 0 and not lowres_enhance:
@@ -240,52 +262,61 @@ def cascade_steps(model, n_valid: int, *, img_size: int, low_size: int,
         scout_clip = clahe_clip
 
     def scout(sweeps):
-        """Tier 1: the low-resolution forward over every frame."""
+        """Tier 1: the low-resolution forward over every frame, per shard."""
         S, N, H, W = sweeps.shape
         flat = sweeps.reshape(S * N, H, W)
         mark()
-        if lowres_enhance:
-            src = flat
-            lo_u8 = enhance_frames(
-                resize_bilinear(flat.to(torch.float32), (low_size, low_size)),
-                scout_clip, clahe_grid, median_kernel)
-            x_lo = lo_u8.to(torch.float32) / 255.0
-        else:
-            src = enhance_frames(flat, clahe_clip, clahe_grid,
-                                 median_kernel).to(torch.float32)
-            x_lo = resize_bilinear(src, (low_size, low_size)) / 255.0
+        srcs, xs = [], []
+        for part in mesh.split_frames(flat, devices or [flat.device], sb):
+            if lowres_enhance:
+                srcs.append(part)
+                lo_u8 = enhance_frames(
+                    resize_bilinear(part.to(torch.float32),
+                                    (low_size, low_size)),
+                    scout_clip, clahe_grid, median_kernel)
+                xs.append(lo_u8.to(torch.float32) / 255.0)
+            else:
+                srcs.append(enhance_frames(part, clahe_clip, clahe_grid,
+                                           median_kernel).to(torch.float32))
+                xs.append(resize_bilinear(srcs[-1], (low_size, low_size))
+                          / 255.0)
         mark("scout_preprocess")
-        probs_lo = predict_sweep_probs(scout_model, x_lo, scout_batch or batch,
-                                       hflip=False)
+        binaries = [_threshold(predict_sweep_probs(
+            _replica(scout_model, x.device), x, sb, hflip=False), scout_thr)
+            for x in xs]
         mark("scout_forward")
-        return src, (S, N), _threshold(probs_lo, scout_thr)
+        return srcs, (S, N), binaries
 
     def promote(state):
-        src, (S, N), binary_lo = state
-        areas_lo = candidate_rank_areas(
-            binary_lo, close_kernel,
-            fill_proxy=(scout_rank != "closed")).reshape(S, N)
+        srcs, (S, N), binaries = state
+        areas_lo = mesh.gather([candidate_rank_areas(
+            b, close_kernel, fill_proxy=(scout_rank != "closed"))
+            for b in binaries], srcs[0].device).reshape(S, N)
         scout_idx = rank_order(areas_lo, None, n_valid)[:, :n_scout]
         mark("scout_rank")
-        return src, scout_idx
+        return srcs, scout_idx
 
     def tier2(state):
         """Tier 2: the full-resolution forward on the promoted frames."""
-        src, scout_idx = state
-        S, (H, W) = scout_idx.shape[0], src.shape[-2:]
-        N = src.shape[0] // S
-        flat_idx = (torch.arange(S, device=src.device)[:, None] * N
+        srcs, scout_idx = state
+        S, (H, W) = scout_idx.shape[0], srcs[0].shape[-2:]
+        N = sum(s.shape[0] for s in srcs) // S
+        flat_idx = (torch.arange(S, device=scout_idx.device)[:, None] * N
                     + scout_idx).reshape(-1)
-        xf_hi = src[flat_idx]
+        xf_hi = _take_frames(srcs, flat_idx)
         if lowres_enhance:
             xf_hi = enhance_frames(xf_hi, clahe_clip, clahe_grid,
                                    median_kernel).to(torch.float32)
         x_hi = resize_bilinear(xf_hi, (img_size, img_size)) / 255.0
         mark("preprocess")
-        probs_hi = predict_sweep_probs(model, x_hi, batch, tta)
+        probs_hi = [predict_sweep_probs(_replica(model, x.device), x, batch,
+                                        tta)
+                    for x in mesh.split_frames(
+                        x_hi, devices or [x_hi.device], batch)]
         mark("forward")
-        probs = gaussian_blur(resize_bilinear(probs_hi, (H, W)), gauss_k, 0.0)
-        return scout_idx, _threshold(probs, threshold)
+        return scout_idx, mesh.gather([_threshold(gaussian_blur(
+            resize_bilinear(p, (H, W)), gauss_k, 0.0), threshold)
+            for p in probs_hi], x_hi.device)
 
     def select(state):
         scout_idx, binary = state
@@ -302,6 +333,11 @@ def cascade_steps(model, n_valid: int, *, img_size: int, low_size: int,
         return cand_idx, refined.reshape(S, n_cand, H, W)
 
     return [(scout, False), (promote, True), (tier2, False), (select, True)]
+
+
+def _replica(model, device: torch.device):
+    """``model``, or its replica on ``device`` where it is a dict of them."""
+    return model[device] if isinstance(model, dict) else model
 
 
 def cascade_candidates(model, sweeps: torch.Tensor, n_valid: int, **kw):
@@ -355,11 +391,13 @@ class AttAsppEngine:
     ``variables`` is the JAX package's nested numpy tree
     (``utils.npz_weights.load_npz_variables``); ``device`` defaults to the
     card and raises if there is none.  ``devices`` (a list, in place of
-    ``device``) splits the frames of the direct, full-probability and ROI
-    paths over those devices, the first being the primary; a card may be
-    listed twice.  With ``PredictConfig.cascade`` and
-    ``cascade_scout_weights`` a second, smaller model is loaded for the
-    cascade's tier-1 ranking forward (:meth:`_init_scout`).
+    ``device``) splits the frames of every path over those devices, the
+    first being the primary; a card may be listed twice.  With
+    ``PredictConfig.cascade`` and ``cascade_scout_weights`` a second,
+    smaller model is loaded for the cascade's tier-1 ranking forward
+    (:meth:`_init_scout`).  With ``conv_lowering="int8"`` the variables'
+    ``quant`` collection gives the activation scales; without one they are
+    calibrated on the first sweep (:meth:`_ensure_quant`).
 
     ``stage_times``: when a dict, every case adds its seconds per stage to it
     ("preprocess", "forward", "postprocess"; the cascade adds
@@ -375,11 +413,20 @@ class AttAsppEngine:
                  devices=None):
         self.cfg = cfg
         self.device, self.devices = _resolve(device, devices)
+        self.variables = variables
+        self._calib_model = None
         if model is None:
-            model = jax_variables_to_torch(variables, cfg.model,
-                                           device=self.device)
-        self.model = model
-        self.models = _replicas(model, self.devices)
+            if (cfg.model.conv_lowering == "int8"
+                    and not (variables or {}).get("quant")):
+                # the direct model serves the calibration forward only
+                self._calib_model = jax_variables_to_torch(
+                    variables, dataclasses.replace(cfg.model,
+                                                   conv_lowering="direct"),
+                    device=self.device)
+            else:
+                model = jax_variables_to_torch(variables, cfg.model,
+                                               device=self.device)
+        self._set_model(model)
         self.stage_times = stage_times
         # on a card the submit halves run their fixed points speculatively,
         # so that the host never waits for the device there
@@ -406,7 +453,7 @@ class AttAsppEngine:
         ``summary.json``; within the chosen file the no-TTA value wins (the
         scout tier never uses TTA).
         """
-        self.scout_model = None
+        self.scout_model = self.scout_models = None
         self._scout_clahe = True
         self._scout_img_size = None
         pc = cfg.predict
@@ -433,12 +480,62 @@ class AttAsppEngine:
         if base_c is None:
             base_c = int(meta.get("base_c", 16))
         v1 = ModelConfig()
+        # the scout always serves direct (as in the JAX package)
         scout_cfg = dataclasses.replace(
             cfg.model, base_c=base_c, use_att=v1.use_att,
             use_aspp=v1.use_aspp, att_depth=v1.att_depth,
-            gate_variant=v1.gate_variant)
+            gate_variant=v1.gate_variant, conv_lowering="direct")
         self.scout_model = jax_variables_to_torch(
             load_npz_variables(path), scout_cfg, device=self.device)
+        self.scout_models = _replicas(self.scout_model, self.devices)
+
+    def _set_model(self, model) -> None:
+        """Serve ``model`` (None: not calibrated yet), a replica on each
+        device."""
+        self.model = model
+        self.models = {} if model is None else _replicas(model, self.devices)
+
+    @torch.no_grad()
+    def _ensure_quant(self, sweep) -> None:
+        """Lazy calibration of the int8 path (``conv_lowering="int8"``
+        without a ``quant`` collection): ``quant_calib_frames`` evenly spaced
+        frames of ``sweep``, preprocessed at ``img_size``, through one
+        calibration forward of the direct model on the primary device (K1
+        with its absmax output); then the int8 model is built once and
+        serves every sweep of the engine's lifetime.  Pass a ``quant``
+        collection (:meth:`quant_variables` of an engine, or the JAX
+        engine's) for scales that do not depend on the first sweep."""
+        if self.model is not None:
+            return
+        p, pc = self.cfg.preprocess, self.cfg.predict
+        n = int(np.shape(sweep)[0])
+        idx = np.linspace(0, n - 1, min(pc.quant_calib_frames, n)).astype(int)
+        if isinstance(sweep, torch.Tensor):
+            frames = sweep[torch.from_numpy(idx).to(sweep.device)]
+        else:
+            frames = np.asarray(sweep)[idx]
+        x = preprocess_sweep(self._to_device(frames), p.img_size, p.clahe_clip,
+                             p.clahe_grid, p.median_kernel)
+        leaves = list(_leaves(self._calib_model.calibrate(x[:, None])))
+        # one transfer of the sites' absmax values
+        values = torch.stack([v for _, v in leaves]).cpu().numpy()
+        quant: dict = {}
+        for (path, _), v in zip(leaves, values):
+            tree_set(quant, "/".join(path[:-1]), path[-1], np.float32(v))
+        self._calib_model = None
+        self._set_model(jax_variables_to_torch(
+            {**self.variables, "quant": quant}, self.cfg.model,
+            device=self.device))
+
+    def quant_variables(self) -> dict:
+        """The variables with the int8 model's ``quant`` collection (per
+        site ``act_absmax`` and ``w_scale``), as the JAX engine keeps them:
+        saved with ``save_npz_variables``, either package serves them
+        without calibrating again."""
+        if self.model is None or self.model.cfg.conv_lowering != "int8":
+            raise ValueError("quant_variables: no calibrated int8 model")
+        return {**{k: v for k, v in self.variables.items() if k != "quant"},
+                "quant": quant_tree(self.model)}
 
     def _mark(self, stage: Optional[str] = None) -> None:
         """End ``stage`` now (None starts the clock)."""
@@ -466,6 +563,7 @@ class AttAsppEngine:
         resolution (blurred, ready for thresholding) on the primary device.
         ``tta_hflip`` defaults off in ``PredictConfig``; the predict CLI
         turns it on."""
+        self._ensure_quant(sweep)
         self._mark()
         return mesh.gather([self._full_probs(s) for s in mesh.split_frames(
             sweep, self.devices, self.cfg.predict.frame_batch)], self.device)
@@ -490,6 +588,7 @@ class AttAsppEngine:
         every returned psi bilinearly resized to ``img_size``, their mean
         (zeros without a gate), resized to the frame."""
         p, pc = self.cfg.preprocess, self.cfg.predict
+        self._ensure_quant(sweep)
         sweep = self._to_device(sweep)
         x = preprocess_sweep(sweep, p.img_size, p.clahe_clip, p.clahe_grid,
                              p.median_kernel)
@@ -544,9 +643,10 @@ class AttAsppEngine:
             lowres_enhance=pc.cascade_lowres_enhance,
             scout_batch=scout_micro_batch(S * n_staged, pc.cascade_scout_batch,
                                           pc.frame_batch),
-            scout_model=self.scout_model, scout_thr=self._scout_thr,
+            scout_model=self.scout_models, scout_thr=self._scout_thr,
             scout_clip=p.clahe_clip if self._scout_clahe else 0.0,
-            scout_rank=pc.cascade_scout_rank, mark=self._mark)
+            scout_rank=pc.cascade_scout_rank, mark=self._mark,
+            devices=self.devices)
 
     @torch.no_grad()
     def _submit(self, steps: List[Step], state, hw: Tuple[int, int]):
@@ -592,9 +692,8 @@ class AttAsppEngine:
         (cand_idx (m,), refined (m, H, W))."""
         pc = self.cfg.predict
         if pc.cascade:
-            self._one_device("the cascade")
             return ([(lambda sweep: self._to_device(sweep)[None], False)]
-                    + cascade_steps(self.model, n, **self._cascade_args(
+                    + cascade_steps(self.models, n, **self._cascade_args(
                         thr, n, n, 1, pc.frame_batch))
                     + [(lambda out: (out[0][0], out[1][0]), False)])
         m = max(1, min(pc.topk_frames + pc.refine_margin, n))
@@ -616,12 +715,6 @@ class AttAsppEngine:
 
         return [(forward, False), (select, True)]
 
-    def _one_device(self, what: str) -> None:
-        if len(self.devices) > 1:
-            raise NotImplementedError(
-                f"{what} runs on one device; this engine has "
-                f"{len(self.devices)} data devices")
-
     def predict_case_submit(self, sweep, threshold: Optional[float] = None):
         """Device half of :meth:`predict_case`: probabilities, candidate
         ranking on the device and refinement of the top candidates, through
@@ -631,6 +724,7 @@ class AttAsppEngine:
         pc = self.cfg.predict
         thr = pc.threshold if threshold is None else threshold
         shape = tuple(int(v) for v in np.shape(sweep))
+        self._ensure_quant(sweep)
         return self._submit(self._case_steps(thr, shape[0]), sweep, shape[-2:])
 
     def _finish(self, cand_idx: np.ndarray, refined: np.ndarray, spacing):
@@ -675,8 +769,8 @@ class AttAsppEngine:
             return F.pad(arr, (0, 0, 0, 0, 0, pad_n)) if pad_n else arr
 
         return [(upload, False)] + cascade_steps(
-            self.model, n, **self._cascade_args(thr, n, n + pad_n, S,
-                                                pc.bulk_frame_batch))
+            self.models, n, **self._cascade_args(thr, n, n + pad_n, S,
+                                                 pc.bulk_frame_batch))
 
     def predict_bulk_submit(self, sweeps, threshold: Optional[float] = None):
         """Device half for S independent same-shape sweeps, (S, N, H, W), as
@@ -689,9 +783,9 @@ class AttAsppEngine:
         pc = self.cfg.predict
         if not pc.cascade:
             raise ValueError("predict_bulk requires PredictConfig.cascade")
-        self._one_device("the bulk path")
         thr = pc.threshold if threshold is None else threshold
         shape = tuple(int(v) for v in np.shape(sweeps))
+        self._ensure_quant(sweeps[0])
         return self._submit(self._bulk_steps(thr, *shape[:2]), sweeps,
                             shape[-2:])
 
@@ -727,6 +821,8 @@ class AttAsppEngine:
         pc = self.cfg.predict
         n = int(np.shape(sweep)[0])
         idxs = np.linspace(0, n - 1, min(pc.subsample_frames, n)).astype(int)
+        # calibrated on full frames at img_size, as the JAX engine does
+        self._ensure_quant(sweep)
         self._mark()
         if not isinstance(sweep, torch.Tensor):
             sweep = np.asarray(sweep)
@@ -874,6 +970,15 @@ def _take_frames(shards: List[torch.Tensor], idx: torch.Tensor
         rows = rows.to(idx.device)
         out = rows if out is None else out + rows
     return out
+
+
+def _leaves(tree: dict, path=()):
+    """(path, leaf) of every leaf of a nested dict, in insertion order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
 
 
 def _threshold(probs: torch.Tensor, thr: float) -> torch.Tensor:

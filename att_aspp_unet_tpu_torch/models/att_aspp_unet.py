@@ -8,6 +8,12 @@ stages u4..u1 gated as :func:`gated` says (v1 gates on u4/u3/u2, v2 gates on
 u4/u3 up to ``att_depth``, none with ``use_att=False``), and a 1x1 output
 conv.  Weights come from the JAX package's variables through
 ``utils.convert.jax_variables_to_torch``.
+
+With ``conv_lowering="int8"`` every 3x3 ConvBNReLU serves quantized, at the
+JAX package's sites: the pairs d1..d4 and u4..u1 (:class:`Int8CBRPair`) and
+the ``--no_aspp`` bridge conv (:class:`Int8ConvBNReLU`); everything else
+stays in the compute dtype.  :meth:`AttentionASPPUNet.calibrate` is the
+direct model's calibration forward.
 """
 
 from __future__ import annotations
@@ -17,7 +23,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..nn.blocks import ASPP, ConvBNReLU, FusedCBRPair, UpBlock
+from ..nn.blocks import (ASPP, ConvBNReLU, FusedCBRPair, Int8CBRPair,
+                         Int8ConvBNReLU, UpBlock)
+from ..nn.quant import conv_sites, tree_set
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -46,21 +54,24 @@ class AttentionASPPUNet(nn.Module):
         self.cfg = cfg
         self.dtype = _DTYPES[cfg.compute_dtype]
         kw = dict(device=device, dtype=self.dtype)
+        int8 = cfg.conv_lowering == "int8"
+        pair = Int8CBRPair if int8 else FusedCBRPair
         c = cfg.base_c
         widths = {1: c, 2: 2 * c, 3: 4 * c, 4: 8 * c}
         cin = cfg.in_channels
         for lvl in (1, 2, 3, 4):
-            setattr(self, f"d{lvl}", FusedCBRPair(cin, widths[lvl],
-                                                  widths[lvl], **kw))
+            setattr(self, f"d{lvl}", pair(cin, widths[lvl], widths[lvl], **kw))
             cin = widths[lvl]
         if cfg.use_aspp:
             self.bridge = ASPP(8 * c, 16 * c, cfg.aspp_rates, **kw)
         else:
-            self.bridge_conv = ConvBNReLU(8 * c, 16 * c, **kw)
+            self.bridge_conv = (Int8ConvBNReLU if int8 else ConvBNReLU)(
+                8 * c, 16 * c, **kw)
         g = 16 * c
         for lvl in (4, 3, 2, 1):
             setattr(self, f"u{lvl}", UpBlock(g, widths[lvl], gated(cfg, lvl),
-                                             cfg.gate_variant, **kw))
+                                             cfg.gate_variant, pair=pair,
+                                             **kw))
             g = widths[lvl]
         self.register_buffer("out_w", torch.zeros(c, cfg.num_classes, **kw))
         self.register_buffer("out_b", torch.zeros(cfg.num_classes,
@@ -92,3 +103,37 @@ class AttentionASPPUNet(nn.Module):
         logits = d.permute(0, 2, 3, 1).float() @ self.out_w.float()
         logits = (logits + self.out_b).permute(0, 3, 1, 2)
         return (logits, [psi3, psi2]) if return_psi else logits
+
+    def site_modules(self):
+        """(module, its sites in the quant tree) of every 3x3 ConvBNReLU
+        site, in forward order."""
+        mods = [(getattr(self, f"d{lvl}"), 2) for lvl in (1, 2, 3, 4)]
+        if not self.cfg.use_aspp:
+            mods.append((self.bridge_conv, 1))
+        mods += [(getattr(self, f"u{lvl}").pair, 2) for lvl in (4, 3, 2, 1)]
+        sites = iter(conv_sites(self.cfg.use_aspp))
+        return [(m, [next(sites) for _ in range(k)]) for m, k in mods]
+
+    @torch.no_grad()
+    def calibrate(self, x: torch.Tensor) -> dict:
+        """The calibration forward of the int8 path on a direct model: one
+        forward of ``x`` recording max |input| of every 3x3 ConvBNReLU conv
+        (a pair's second conv through K1's calibration mode).  Returns the
+        JAX ``quant`` collection's ``act_absmax`` tree (``d1_0/conv/
+        act_absmax``, ...), one f32 tensor on x's device per site."""
+        if self.cfg.conv_lowering != "direct":
+            raise ValueError("calibrate runs on the direct model")
+        mods = self.site_modules()
+        for m, _ in mods:
+            m.record = []
+        try:
+            self.forward(x)
+            tree: dict = {}
+            for m, sites in mods:
+                (values,) = m.record
+                for site, v in zip(sites, values):
+                    tree_set(tree, site, "act_absmax", v)
+        finally:
+            for m, _ in mods:
+                m.record = None
+        return tree

@@ -2,4 +2,5 @@
 train model's (``train_blocks``)."""
 
 from .blocks import (ASPP, AttentionGateV1, AttentionGateV2,  # noqa: F401
-                     ConvBNReLU, FusedCBRPair, UpBlock)
+                     ConvBNReLU, FusedCBRPair, Int8CBRPair, Int8ConvBNReLU,
+                     UpBlock)

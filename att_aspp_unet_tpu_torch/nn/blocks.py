@@ -17,6 +17,15 @@ reference-precision mode the tests hold against the flax model).  Every
 ``--no_aspp`` bridge conv, the 1x1 convs and the transposed conv are plain
 torch ops, as the JAX package left them to XLA.
 
+The int8 serving mode (``ModelConfig.conv_lowering="int8"``, ``nn/quant.py``)
+replaces every 3x3 ConvBNReLU by its post-training-quantized form: a pair is
+two launches of kernel K3 (``ops/kernels/int8_conv.int8_conv3x3``,
+:class:`Int8CBRPair`), the ``--no_aspp`` bridge conv one
+(:class:`Int8ConvBNReLU`).  Its activation scales come from a calibration
+forward of the direct model, during which each pair and bridge conv records
+the absmax of its convs' inputs (``record``): the pair's input directly, the
+intermediate through K1's calibration mode.
+
 Layout: every block takes and returns (N, C, H, W) tensors whose memory is
 ``torch.channels_last`` (NHWC strides), the layout K1 reads and writes, so
 no pair pays a layout copy.  The 1x1 convs and the transposed conv are
@@ -35,8 +44,28 @@ import torch.nn.functional as F
 
 from ..ops.kernels.fused_conv import (exact_f32, fused_double_cbr,
                                        prepack_pair)
+from ..ops.kernels.int8_conv import int8_conv3x3, prepack_int8_weight
 
 F32 = torch.float32
+
+
+def _absmax(x: torch.Tensor) -> torch.Tensor:
+    """max |x| as one f32 on x's device."""
+    return x.abs().amax().to(F32)
+
+
+class _Prepacked:
+    """The weights of a module in a kernel's order, rebuilt only when one of
+    them was replaced, moved or written to."""
+
+    _packed = None
+    _packed_of = None
+
+    def _prepacked(self, prepack, *weights):
+        of = tuple((w.data_ptr(), w._version, w.device) for w in weights)
+        if self._packed_of != of:
+            self._packed, self._packed_of = prepack(*weights), of
+        return self._packed
 
 
 def _affine(y, s, b):
@@ -60,7 +89,7 @@ def pointwise(x, w, s=None, b=None, relu=False, sigmoid=False):
     return y.to(x.dtype).permute(0, 3, 1, 2)
 
 
-class FusedCBRPair(nn.Module):
+class FusedCBRPair(_Prepacked, nn.Module):
     """Two chained Conv3x3(pad 1, no bias) + folded BN + ReLU: one K1 launch.
     Weights packed (Cout, 9*Cin) in (ky, kx, ci) order; on a card they are
     put into the kernel's order once, at the first forward after they were
@@ -76,23 +105,55 @@ class FusedCBRPair(nn.Module):
         self.register_buffer("w2", torch.zeros(cout, 9 * cmid, dtype=dtype, **kw))
         self.register_buffer("s2", torch.ones(cout, dtype=F32, **kw))
         self.register_buffer("b2", torch.zeros(cout, dtype=F32, **kw))
-        self._packed = None
-        self._packed_of = None
+        # calibration: a list that each forward appends (absmax of the
+        # input, absmax of the intermediate) to; None when serving
+        self.record = None
 
     def packed(self):
-        """The weights in the kernel's order, rebuilt only when ``w1`` or
-        ``w2`` was replaced, moved or written to."""
-        of = tuple((w.data_ptr(), w._version, w.device) for w in
-                   (self.w1, self.w2))
-        if self._packed_of != of:
-            self._packed = prepack_pair(self.w1, self.w2)
-            self._packed_of = of
-        return self._packed
+        """The weights in the kernel's order (see :class:`_Prepacked`)."""
+        return self._prepacked(prepack_pair, self.w1, self.w2)
 
     def forward(self, x):
         packed = self.packed() if x.device.type == "cuda" else None
+        mid = None
+        if self.record is not None:
+            mid = torch.zeros((), dtype=F32, device=x.device)
+            self.record.append((_absmax(x), mid))
         return fused_double_cbr(x, self.w1, self.s1, self.b1, self.w2,
-                                self.s2, self.b2, packed=packed)
+                                self.s2, self.b2, packed=packed, absmax=mid)
+
+
+class Int8CBRPair(_Prepacked, nn.Module):
+    """The int8 form of :class:`FusedCBRPair`: two K3 launches, each
+    quantizing its input with its calibrated per-tensor scale ``s_x1`` /
+    ``s_x2`` (computed from ``act_absmax1`` / ``2``), int8 weights ``w1`` /
+    ``w2`` packed (Cout, 9*Cin) with their per-channel ``w_scale1`` / ``2``,
+    and the folded BN.  The intermediate travels in the compute dtype, as
+    in the JAX package.  On a card the weights are put into the kernel's
+    order once, as :class:`FusedCBRPair` does."""
+
+    def __init__(self, cin: int, cmid: int, cout: int, device=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        kw = dict(device=device)
+        for i, (ci, co) in ((1, (cin, cmid)), (2, (cmid, cout))):
+            self.register_buffer(f"w{i}", torch.zeros(co, 9 * ci,
+                                                      dtype=torch.int8, **kw))
+            self.register_buffer(f"w_scale{i}", torch.ones(co, dtype=F32, **kw))
+            self.register_buffer(f"act_absmax{i}", torch.ones((), dtype=F32,
+                                                              **kw))
+            self.register_buffer(f"s_x{i}", torch.ones((), dtype=F32, **kw))
+            self.register_buffer(f"s{i}", torch.ones(co, dtype=F32, **kw))
+            self.register_buffer(f"b{i}", torch.zeros(co, dtype=F32, **kw))
+
+    def forward(self, x):
+        p1, p2 = (self._prepacked(lambda *w: tuple(map(prepack_int8_weight, w)),
+                                  self.w1, self.w2)
+                  if x.device.type == "cuda" else (None, None))
+        h = int8_conv3x3(x, self.w1, self.w_scale1, self.s_x1, self.s1,
+                         self.b1, packed=p1)
+        return int8_conv3x3(h, self.w2, self.w_scale2, self.s_x2, self.s2,
+                            self.b2, packed=p2)
 
 
 class ConvBNReLU(nn.Module):
@@ -112,12 +173,38 @@ class ConvBNReLU(nn.Module):
                 memory_format=torch.channels_last))
         self.register_buffer("s", torch.ones(cout, dtype=F32, **kw))
         self.register_buffer("b", torch.zeros(cout, dtype=F32, **kw))
+        self.record = None       # calibration, as FusedCBRPair.record
 
     def forward(self, x):
+        if self.record is not None:
+            self.record.append((_absmax(x),))
         with exact_f32():
             y = F.conv2d(x, self.w, padding=1)
         y = torch.relu(_affine(y.to(F32), self.s, self.b)).to(x.dtype)
         return y.contiguous(memory_format=torch.channels_last)
+
+
+class Int8ConvBNReLU(_Prepacked, nn.Module):
+    """The int8 form of :class:`ConvBNReLU` (the ``--no_aspp`` bridge): one
+    K3 launch; buffers as one conv of :class:`Int8CBRPair`."""
+
+    def __init__(self, cin: int, cout: int, device=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        kw = dict(device=device)
+        self.register_buffer("w", torch.zeros(cout, 9 * cin, dtype=torch.int8,
+                                              **kw))
+        self.register_buffer("w_scale", torch.ones(cout, dtype=F32, **kw))
+        self.register_buffer("act_absmax", torch.ones((), dtype=F32, **kw))
+        self.register_buffer("s_x", torch.ones((), dtype=F32, **kw))
+        self.register_buffer("s", torch.ones(cout, dtype=F32, **kw))
+        self.register_buffer("b", torch.zeros(cout, dtype=F32, **kw))
+
+    def forward(self, x):
+        packed = (self._prepacked(prepack_int8_weight, self.w)
+                  if x.device.type == "cuda" else None)
+        return int8_conv3x3(x, self.w, self.w_scale, self.s_x, self.s,
+                            self.b, packed=packed)
 
 
 class ASPP(nn.Module):
@@ -215,10 +302,12 @@ class AttentionGateV2(nn.Module):
 class UpBlock(nn.Module):
     """Decoder stage: ConvTranspose 2x2 stride 2 of the gate signal, the
     skip through a v1 or v2 gate where ``use_att``, concat ``[skip, g]``, one
-    fused CBR pair.  Returns ``(h, psi)``, psi None without a gate."""
+    CBR pair (``pair``: the class, :class:`FusedCBRPair` by default).
+    Returns ``(h, psi)``, psi None without a gate."""
 
     def __init__(self, cin: int, features: int, use_att: bool,
-                 gate_variant: str = "v1", device=None, dtype=torch.bfloat16):
+                 gate_variant: str = "v1", device=None, dtype=torch.bfloat16,
+                 pair=None):
         super().__init__()
         kw = dict(device=device)
         # (u, v, ci, co), pre-flipped so out[2h+u, 2w+v] = x[h, w] @ k[u, v]
@@ -232,8 +321,8 @@ class UpBlock(nn.Module):
             self.att = AttentionGateV2(features, features,
                                        max(8, features // 4),
                                        device=device, dtype=dtype)
-        self.pair = FusedCBRPair(2 * features, features, features,
-                                 device=device, dtype=dtype)
+        self.pair = (pair or FusedCBRPair)(2 * features, features, features,
+                                           device=device, dtype=dtype)
 
     def up(self, g):
         n, ci, h, w = g.shape

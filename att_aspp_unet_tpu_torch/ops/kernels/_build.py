@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-KERNEL_SOURCES = ("fused_double_cbr", "clahe_interp")
+KERNEL_SOURCES = ("fused_double_cbr", "clahe_interp", "int8_conv3x3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

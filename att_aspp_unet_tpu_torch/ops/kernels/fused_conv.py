@@ -84,16 +84,21 @@ def _cbr(x, w, scale, bias):
 def fused_double_cbr_reference(x: torch.Tensor, w1: torch.Tensor,
                                scale1: torch.Tensor, bias1: torch.Tensor,
                                w2: torch.Tensor, scale2: torch.Tensor,
-                               bias2: torch.Tensor) -> torch.Tensor:
+                               bias2: torch.Tensor,
+                               absmax: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Plain version: two f32 convolutions on inputs and weights rounded to
     ``x.dtype``, the intermediate rounded to ``x.dtype`` as well.  For bf16
     ``x`` this is the kernel's precision contract; for f32 ``x`` it is the
-    exact f32 pair."""
+    exact f32 pair.  ``absmax`` (one f32) takes the max of itself and of the
+    rounded intermediate, in place."""
     dt = x.dtype
     f32 = torch.float32
-    h = _cbr(x.to(f32), w1.to(dt).to(f32), scale1.to(f32), bias1.to(f32))
-    y = _cbr(h.to(dt).to(f32), w2.to(dt).to(f32), scale2.to(f32),
-             bias2.to(f32))
+    h = _cbr(x.to(f32), w1.to(dt).to(f32), scale1.to(f32),
+             bias1.to(f32)).to(dt)
+    if absmax is not None:
+        absmax.copy_(torch.maximum(absmax, h.amax().to(f32)))
+    y = _cbr(h.to(f32), w2.to(dt).to(f32), scale2.to(f32), bias2.to(f32))
     return y.to(dt)
 
 
@@ -260,7 +265,7 @@ def _lib():
     fn = lib.fused_double_cbr_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return lib
 
@@ -320,7 +325,8 @@ def _check_packed(packed, w1, w2):
 def fused_double_cbr(x: torch.Tensor, w1: torch.Tensor, scale1: torch.Tensor,
                      bias1: torch.Tensor, w2: torch.Tensor,
                      scale2: torch.Tensor, bias2: torch.Tensor,
-                     packed: Optional[PackedPair] = None) -> torch.Tensor:
+                     packed: Optional[PackedPair] = None,
+                     absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``relu(s2*conv3x3(h)+b2)`` with ``h = relu(s1*conv3x3(x)+b1)``; both
     convs zero-pad 1, no bias.
 
@@ -329,14 +335,22 @@ def fused_double_cbr(x: torch.Tensor, w1: torch.Tensor, scale1: torch.Tensor,
     bf16 weights and a bf16 x in ``torch.channels_last`` memory format and
     returns bf16 in the same format; it converts nothing.  ``packed`` is
     :func:`prepack_pair` of (w1, w2); without it the weights are prepacked on
-    the fly.  CPU tensors go to the plain version.
+    the fly.  ``absmax``, one f32 on x's device, makes it a calibration
+    launch of the int8 path: it takes the max of itself and of the
+    intermediate ``h`` (non-negative), in place.  CPU tensors go to the
+    plain version.
     """
     if x.device.type == "cpu":
         return fused_double_cbr_reference(x, w1, scale1, bias1, w2, scale2,
-                                          bias2)
+                                          bias2, absmax)
     if x.device.type != "cuda":
         raise ValueError(f"fused_double_cbr: unsupported device {x.device}")
     _check_cuda(x, w1, scale1, bias1, w2, scale2, bias2)
+    if absmax is not None and (absmax.device != x.device
+                               or absmax.dtype != torch.float32
+                               or absmax.numel() != 1):
+        raise ValueError("fused_double_cbr: absmax must be one f32 on "
+                         f"{x.device}")
     if packed is None:
         packed = prepack_pair(w1, w2)
     else:
@@ -354,6 +368,7 @@ def fused_double_cbr(x: torch.Tensor, w1: torch.Tensor, scale1: torch.Tensor,
             bias1.data_ptr(), packed.w2p.data_ptr(), scale2.data_ptr(),
             bias2.data_ptr(), out.data_ptr(), N, cin, cmid, cout, H, W,
             packed.th, packed.kc, int(packed.wgmma),
+            None if absmax is None else absmax.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_double_cbr launch")
     fused_double_cbr.launches += 1

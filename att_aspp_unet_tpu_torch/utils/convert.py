@@ -13,7 +13,13 @@ converted to numpy) and builds the port's :class:`AttentionASPPUNet`:
   for ``F.conv2d``;
 - the tree is read as the config's variant reads it (v1 or v2 gates, the
   ungated levels, ASPP or ``bridge_conv``); subtrees the variant does not
-  use are ignored, as flax's ``apply`` ignores them.
+  use are ignored, as flax's ``apply`` ignores them;
+- with ``conv_lowering="int8"`` the tree carries the JAX ``quant``
+  collection: each 3x3 ConvBNReLU site's calibrated ``act_absmax`` and
+  either a float kernel (quantized here, ``nn/quant.py``) or the
+  prequantized form the JAX engine keeps and ``save_npz_variables`` stores,
+  an int8 kernel with its ``w_scale``.  :func:`quant_tree` is the inverse:
+  the int8 model's scales as that collection.
 
 ``jax_variables_to_train_model`` and ``train_model_to_jax_variables`` carry
 the same tree to and from the trainable ``AttentionASPPUNetTrain``, whose
@@ -44,6 +50,8 @@ from ..config import ModelConfig, PlainUNetConfig
 from ..models.att_aspp_unet import AttentionASPPUNet, gated
 from ..models.att_aspp_unet_train import AttentionASPPUNetTrain
 from ..models.plain_unet import PlainConvUNet
+from ..nn.quant import (act_scale, conv_sites, merge_quant, prequantize,
+                        tree_get, tree_set)
 from ..ops.kernels.fused_conv import fold_batchnorm, pack_conv_weight
 
 
@@ -55,11 +63,42 @@ def _bn(p, s):
     return fold_batchnorm(p["scale"], p["bias"], s["mean"], s["var"])
 
 
-def _pair(sd, prefix, p0, s0, p1, s1):
-    sd[f"{prefix}.w1"] = pack_conv_weight(_np(p0["conv"]["kernel"]))
-    sd[f"{prefix}.s1"], sd[f"{prefix}.b1"] = _bn(p0["bn"], s0["bn"])
-    sd[f"{prefix}.w2"] = pack_conv_weight(_np(p1["conv"]["kernel"]))
-    sd[f"{prefix}.s2"], sd[f"{prefix}.b2"] = _bn(p1["bn"], s1["bn"])
+def _int8_conv(sd, key, i, p, quant, site):
+    """One int8 site's buffers ``{key}w{i}``, ``w_scale{i}``,
+    ``act_absmax{i}``, ``s_x{i}``: the prequantized kernel packed, its
+    ``w_scale``, the activation scale from ``act_absmax``."""
+    node = tree_get(quant, site)
+    amax = np.asarray(node["act_absmax"], np.float32)
+    sd[f"{key}w{i}"] = pack_conv_weight(p["conv"]["kernel"])
+    sd[f"{key}w_scale{i}"] = np.asarray(node["w_scale"], np.float32)
+    sd[f"{key}act_absmax{i}"], sd[f"{key}s_x{i}"] = amax, act_scale(amax)
+
+
+def _pair(sd, prefix, p0, s0, p1, s1, quant=None, sites=(None, None)):
+    for i, p, st, site in ((1, p0, s0, sites[0]), (2, p1, s1, sites[1])):
+        if quant is None:
+            sd[f"{prefix}.w{i}"] = pack_conv_weight(_np(p["conv"]["kernel"]))
+        else:
+            _int8_conv(sd, f"{prefix}.", i, p, quant, site)
+        sd[f"{prefix}.s{i}"], sd[f"{prefix}.b{i}"] = _bn(p["bn"], st["bn"])
+
+
+def _quant_of(variables: Dict, cfg: ModelConfig):
+    """The ``quant`` collection an int8 model needs (None for a direct
+    one); ValueError when a site lacks its calibrated ``act_absmax``."""
+    if cfg.conv_lowering != "int8":
+        return None
+    quant = variables.get("quant") or {}
+    for site in conv_sites(cfg.use_aspp):
+        try:
+            tree_get(quant, site)["act_absmax"]
+        except (KeyError, TypeError):
+            raise ValueError(
+                f"conv_lowering='int8' needs the calibrated quant collection "
+                f"(act_absmax of every 3x3 conv site; {site} has none): "
+                "calibrate it with AttAsppEngine or pass the JAX engine's "
+                "variables") from None
+    return quant
 
 
 def _pw(sd, prefix, p, s, conv, bn):
@@ -71,10 +110,17 @@ def torch_state_dict(variables: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]
     """The port's state dict (numpy f32 arrays) from JAX variables, for the
     variant ``cfg`` describes."""
     p, s = variables["params"], variables["batch_stats"]
+    quant = _quant_of(variables, cfg)
+    if quant is not None:
+        # int8 kernels at every site, their scales beside the calibration
+        # (kernels that are int8 already keep the w_scale they came with)
+        p, w_scales = prequantize(p, cfg.use_aspp)
+        quant = merge_quant(quant, w_scales)
     sd: Dict[str, np.ndarray] = {}
     for lvl in (1, 2, 3, 4):
         _pair(sd, f"d{lvl}", p[f"d{lvl}_0"], s[f"d{lvl}_0"],
-              p[f"d{lvl}_1"], s[f"d{lvl}_1"])
+              p[f"d{lvl}_1"], s[f"d{lvl}_1"], quant,
+              (f"d{lvl}_0/conv", f"d{lvl}_1/conv"))
 
     if cfg.use_aspp:
         bp, bs = p["bridge"], s["bridge"]
@@ -88,7 +134,11 @@ def torch_state_dict(variables: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]
         _pw(sd, "bridge.proj", bp, bs, "project_conv", "project_bn")
     else:
         bp, bs = p["bridge_conv"], s["bridge_conv"]
-        sd["bridge_conv.w"] = _np(bp["conv"]["kernel"]).transpose(3, 2, 0, 1)
+        if quant is None:
+            sd["bridge_conv.w"] = _np(bp["conv"]["kernel"]).transpose(
+                3, 2, 0, 1)
+        else:
+            _int8_conv(sd, "bridge_conv.", "", bp, quant, "bridge_conv/conv")
         sd["bridge_conv.s"], sd["bridge_conv.b"] = _bn(bp["bn"], bs["bn"])
 
     for lvl in (4, 3, 2, 1):
@@ -96,7 +146,8 @@ def torch_state_dict(variables: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]
         sd[f"u{lvl}.up_k"] = _np(up["up"]["kernel"])[::-1, ::-1]
         sd[f"u{lvl}.up_b"] = _np(up["up"]["bias"])
         _pair(sd, f"u{lvl}.pair", up["conv0"], us["conv0"], up["conv1"],
-              us["conv1"])
+              us["conv1"], quant,
+              (f"u{lvl}/conv0/conv", f"u{lvl}/conv1/conv"))
         if not gated(cfg, lvl):
             continue
         ap = up["att"]
@@ -113,6 +164,23 @@ def torch_state_dict(variables: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]
     sd["out_w"] = _np(p["out_conv"]["kernel"])[0, 0]
     sd["out_b"] = _np(p["out_conv"]["bias"])
     return sd
+
+
+def quant_tree(model: AttentionASPPUNet) -> Dict:
+    """The JAX ``quant`` collection of an int8 model (nested numpy: per
+    site ``act_absmax`` and ``w_scale``), the inverse of what
+    :func:`jax_variables_to_torch` reads, so that the JAX package serves
+    the port's calibration without calibrating again."""
+    if model.cfg.conv_lowering != "int8":
+        raise ValueError("quant_tree: the model is not an int8 one")
+    tree: Dict = {}
+    for m, sites in model.site_modules():
+        suffixes = [""] if len(sites) == 1 else ["1", "2"]
+        for site, i in zip(sites, suffixes):
+            for leaf in ("act_absmax", "w_scale"):
+                tree_set(tree, site, leaf, getattr(m, f"{leaf}{i}").detach()
+                         .to("cpu", torch.float32).numpy().copy())
+    return tree
 
 
 def _variable_layout(cfg: ModelConfig

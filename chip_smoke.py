@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. build the hand-written kernels from ``att_aspp_unet_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel);
+   (one ``nvcc`` per source, in parallel): K1 ``fused_double_cbr``, K2
+   ``clahe_interp``, K3 ``int8_conv3x3``;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving paths give it — K1 ``fused_double_cbr`` at the eight
    conv-pair shapes of the base_c 48 model at 512x512 (N = 32; N = 2, a PNG
@@ -24,7 +25,14 @@ Phases (any failure exits non-zero and prints no result line):
    4 x 128 x 128 batches — and time
    kernel, plain version and a library yardstick (for K1 cuDNN's
    bf16 convolutions on channel-last and on contiguous tensors; the faster
-   sum is ``library_ms``);
+   sum is ``library_ms``); K1's calibration launches (the int8 path's
+   absmax of the intermediate) against the plain version's max at the main
+   shapes, their output equal to the served launch's, and timed; K3 at the
+   sixteen conv shapes of the direct path's 32-frame micro-batch, a
+   cascade's 16-frame tier-2 micro-batch and the ROI path's 16 crops (and
+   the ``--no_aspp`` bridge conv), int32 accumulators exact and bf16 outputs
+   within one ulp of the plain version, timed beside im2col +
+   ``torch._int_mm`` (cuBLASLt's int8 GEMM) as ``library_ms``;
 3. direct path: the port's ``predict`` CLI on a synthetic 140-frame ``.mha``
    sweep with the repo's trained weights (base_c 48, hflip TTA), the kernel
    launch counters zeroed just before and read just after; output checks; 6
@@ -111,6 +119,17 @@ Phases (any failure exits non-zero and prints no result line):
    sweep, over every visible card and over card 0 listed twice, against
    the one-device engines (probabilities within 1e-5, frame, mask and AC
    equal, launches the per-shard sums; frames/s);
+16b. int8 (after the container phase): ``--int8`` serving with the trained
+   weights: the engine's calibration on the 140-frame sweep (K1 8, K2 1),
+   the sweep and the 840-frame case direct, a cascade and a bulk group of
+   four on those scales, card 0 listed twice, ``infer-container --int8`` on
+   the 840-frame case; each beside the bf16 engine (same frame required,
+   frames/s, AC, Dice), two frames card against the CPU's plain versions
+   (same frame, Dice >= 0.98), the launches each path implies (K3 two per
+   pair and micro-batch, no K1 on a served int8 forward);
+16c. warm (last): ``cli warm --int8`` in a subprocess on a copy of the
+   package with an empty build directory (builds K1, K2, K3 and the host
+   ops), then a ``predict --int8`` subprocess that builds nothing;
 17. ddp (after the train phase): ``DDP_STEPS`` fixed-batch train steps at
    the CLI's defaults (bf16) and in f64 at base_c 8, 128², in one process
    and through the launcher of data-parallel training, (a) on the data axis
@@ -141,6 +160,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
+PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bytes/s
 N_FRAMES, FRAME_HW, SEED = 140, (562, 744), 0
@@ -173,22 +193,23 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events), after one
-    warm-up call."""
+    """Milliseconds per call of ``fn`` on the card: one warm-up call, then
+    ``reps`` calls back to back between two CUDA events, so that the host's
+    time to start a call hides behind the previous call's device time
+    (timed one by one, calls made while the sweep generators kept the host
+    busy read several times their device time)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -223,8 +244,8 @@ def phase_k1_set(dev, label):
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf = torch.bfloat16
     tot = dict(ms=0.0, plain_ms=0.0, lib_cl=0.0, lib_nchw=0.0, bound_ms=0.0,
-               flops=0.0, bytes=0.0)
-    max_err = 0.0
+               flops=0.0, bytes=0.0, calib_ms=0.0)
+    max_err = calib_err = 0.0
     for name, cin, cmid, cout, hw in shapes:
         def rnd(*shape):
             return torch.randn(*shape, generator=g, device=dev)
@@ -241,7 +262,14 @@ def phase_k1_set(dev, label):
 
         got = fc.fused_double_cbr(*args, packed=packed)
         torch.cuda.synchronize()
-        want = fc.fused_double_cbr_reference(*args).float()
+        calib = label == "main"     # the int8 path's calibration launch
+        if calib:
+            amax = torch.zeros((), device=dev)
+            same = torch.equal(fc.fused_double_cbr(*args, packed=packed,
+                                                   absmax=amax), got)
+            amax_want = torch.zeros((), device=dev)
+        want = fc.fused_double_cbr_reference(
+            *args, absmax=amax_want if calib else None).float()
         err = (got.float() - want).abs()
         n_bad = int((err > 2e-2 + 2e-2 * want.abs()).sum())
         max_err = max(max_err, float(err.max()))
@@ -249,6 +277,14 @@ def phase_k1_set(dev, label):
         if n_bad:
             raise AssertionError(f"K1 {label} {name}: {n_bad} outputs "
                                  "outside rtol/atol 2e-2")
+        if calib:
+            a, b = float(amax), float(amax_want)
+            calib_err = max(calib_err, abs(a - b) / b)
+            if not same or abs(a - b) > 2e-2 + 2e-2 * b:
+                raise AssertionError(
+                    f"K1 {label} {name} calibration launch: absmax {a} "
+                    f"against the plain version's {b} (rtol/atol 2e-2), "
+                    f"output equal to the served launch's: {same}")
 
         sb = [t.to(bf)[None, :, None, None] for t in (s1, b1, s2, b2)]
 
@@ -264,6 +300,8 @@ def phase_k1_set(dev, label):
         # a launch of a few frames lasts ~0.1 ms: more repetitions
         reps = 5 if N >= 16 else 25
         ms = cuda_ms(lambda: fc.fused_double_cbr(*args, packed=packed), reps)
+        calib_ms = (cuda_ms(lambda: fc.fused_double_cbr(
+            *args, packed=packed, absmax=amax), reps) if calib else 0.0)
         plain_ms = cuda_ms(lambda: fc.fused_double_cbr_reference(*args), 3)
         lib_cl = cuda_ms(library(x, torch.channels_last), reps)
         lib_nchw = cuda_ms(library(x.contiguous(), torch.contiguous_format),
@@ -278,10 +316,14 @@ def phase_k1_set(dev, label):
             f"{packed.th}x16, K-chunk {packed.kc}), plain {plain_ms:.3f}"
             f" ms, cuDNN bf16 channel-last {lib_cl:.3f} ms / NCHW "
             f"{lib_nchw:.3f} ms, bound {b_ms:.3f} ms, max|err| "
-            f"{float(max_err):.4g}")
+            f"{float(max_err):.4g}" + (
+                f"; calibration launch {calib_ms:.3f} ms, absmax "
+                f"{float(amax):.6g} vs plain {float(amax_want):.6g}"
+                if calib else ""))
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("lib_cl", lib_cl),
                      ("lib_nchw", lib_nchw), ("bound_ms", b_ms),
-                     ("flops", flops), ("bytes", nbytes)):
+                     ("flops", flops), ("bytes", nbytes),
+                     ("calib_ms", calib_ms)):
             tot[k] += v
         del x, w1, w2, args
         torch.cuda.empty_cache()
@@ -291,7 +333,10 @@ def phase_k1_set(dev, label):
         f"{tot['ms']:.3f} ms = {tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s, "
         f"cuDNN bf16 channel-last {tot['lib_cl']:.3f} ms / NCHW "
         f"{tot['lib_nchw']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
-        f"({tot['bound_by']})")
+        f"({tot['bound_by']})" + (
+            f"; calibration launches (absmax of the intermediate) "
+            f"{tot['calib_ms']:.3f} ms, absmax within {calib_err:.3g} "
+            "relative of the plain version's" if tot["calib_ms"] else ""))
     return tot
 
 
@@ -308,7 +353,8 @@ def phase_k1(dev, labels, entry=None):
                  "max_abs_err": 0.0,
                  "ms": main["ms"], "plain_ms": main["plain_ms"],
                  "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                 "library_ms": min(main["lib_cl"], main["lib_nchw"])}
+                 "library_ms": min(main["lib_cl"], main["lib_nchw"]),
+                 "calibration_ms": main["calib_ms"]}
     entry["max_abs_err"] = max([entry["max_abs_err"]]
                                + [t["max_abs_err"] for t in sets.values()])
     for label in labels:
@@ -319,6 +365,165 @@ def phase_k1(dev, labels, entry=None):
                       f"{label}_bound_ms": t["bound_ms"],
                       f"{label}_bound_by": t["bound_by"],
                       f"{label}_library_ms": min(t["lib_cl"], t["lib_nchw"])})
+    return entry
+
+
+# label -> (base_c, input size, frames per launch) of K3's shape sets: the
+# direct path's micro-batch (16 frames with their hflip twins), a cascade's
+# tier-2 micro-batch (8 promoted frames with their twins) and the ROI path's
+# 16 crops
+K3_SHAPE_SETS = {"main": (48, 512, 32), "tier2": (48, 512, 16),
+                 "roi": (48, 224, 16)}
+
+
+def k3_convs(base_c: int, size: int):
+    """The sixteen convs of the eight pairs, in forward order: (name, Cin,
+    Cout, H = W)."""
+    from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as fc
+
+    out = []
+    for name, cin, cmid, cout, hw in fc.model_pairs(base_c, size):
+        out += [(f"{name}.0", cin, cmid, hw), (f"{name}.1", cmid, cout, hw)]
+    return out
+
+
+def bf16_ulps(a, b) -> int:
+    """Largest distance of two bf16 tensors in units of the last place."""
+    import torch
+
+    ia = a.contiguous().view(torch.int16).to(torch.int32)
+    ib = b.contiguous().view(torch.int16).to(torch.int32)
+    ia = torch.where(ia < 0, -32768 - ia, ia)
+    ib = torch.where(ib < 0, -32768 - ib, ib)
+    return int((ia - ib).abs().max())
+
+
+def int8_library(xq, wq):
+    """The library yardstick of one int8 conv: im2col of the quantized
+    channel-last input (K padded to a multiple of 8) and cuBLASLt's int8
+    GEMM (``torch._int_mm``); int32 (N, H, W, Cout)."""
+    import torch
+    import torch.nn.functional as F
+
+    N, H, W, C = xq.shape
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, ky:ky + H, kx:kx + W] for ky in range(3)
+                      for kx in range(3)], dim=-1).reshape(N * H * W, 9 * C)
+    k = cols.shape[1]
+    if k % 8:
+        cols = F.pad(cols, (0, 8 - k % 8))
+        wq = F.pad(wq, (0, 8 - k % 8))
+    return torch._int_mm(cols, wq.t()).reshape(N, H, W, -1)
+
+
+def phase_k3_set(dev, label):
+    """K3 at the sixteen conv shapes of one shape set (the main set also
+    the ``--no_aspp`` bridge conv, on its own): the int32 accumulators
+    exact and the bf16 outputs within one ulp of the plain version; kernel,
+    plain and library times.  Returns the sums over the sixteen."""
+    import torch
+
+    from att_aspp_unet_tpu_torch.ops.kernels import int8_conv as ic
+
+    base_c, size, N = K3_SHAPE_SETS[label]
+    convs = k3_convs(base_c, size)
+    if label == "main":
+        convs.append(("bridge", 8 * base_c, 16 * base_c, size // 16))
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    tot = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, bound_ms=0.0, ops=0.0,
+               bytes=0.0, max_abs_err=0.0)
+    no_lib = []
+    for name, cin, cout, hw in convs:
+        x = (torch.randn(N, cin, hw, hw, generator=g, device=dev) * 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wq = torch.randint(-127, 128, (cout, 9 * cin), generator=g,
+                           device=dev, dtype=torch.int8)
+        ws = torch.rand(cout, generator=g, device=dev) * 1e-3 + 1e-4
+        s_x = torch.full((), 5.0 / 127, device=dev)
+        sc = torch.rand(cout, generator=g, device=dev) + 0.5
+        bi = torch.randn(cout, generator=g, device=dev) * 0.1
+        args = (x, wq, ws, s_x, sc, bi)
+        packed = ic.prepack_int8_weight(wq)
+        acc = ic.int8_conv3x3(*args, packed=packed, raw=True)
+        got = ic.int8_conv3x3(*args, packed=packed)
+        torch.cuda.synchronize()
+        acc_ok = torch.equal(acc, ic.int8_conv3x3_reference(*args, raw=True))
+        want = ic.int8_conv3x3_reference(*args)
+        ulps = bf16_ulps(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        del want
+        if not acc_ok or ulps > 1:
+            raise AssertionError(f"K3 {label} {name}: accumulators exact "
+                                 f"{acc_ok}, outputs {ulps} bf16 ulp apart")
+        ms = cuda_ms(lambda: ic.int8_conv3x3(*args, packed=packed),
+                     5 if N * hw * hw >= 2 ** 21 else 25)
+        plain_ms = cuda_ms(lambda: ic.int8_conv3x3_reference(*args), 1)
+        xq = ic.quantize_act(x, s_x).permute(0, 2, 3, 1).contiguous()
+        try:
+            lib_out = int8_library(xq, wq)
+            lib_ok = torch.equal(lib_out, acc.permute(0, 2, 3, 1))
+            del lib_out
+            lib_ms = cuda_ms(lambda: int8_library(xq, wq), 3)
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as exc:
+            lib_ok, lib_ms = None, None
+            no_lib.append(f"{name}: {str(exc).splitlines()[0][:80]}")
+        ops = 2.0 * N * hw * hw * 9 * cin * cout
+        nbytes = 2 * x.numel() + wq.numel() + 2 * N * cout * hw * hw \
+            + 4 * (3 * cout + 1)
+        b_ms, bound_by = bound(ops, nbytes, PEAK_INT8_OPS)
+        log(f"[K3 {label}] {name} N={N} {cin}->{cout} @{hw}^2: kernel "
+            f"{ms:.3f} ms ({ops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.3f} "
+            f"ms, im2col + torch._int_mm "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'} (its int32 "
+            f"equal to K3's: {lib_ok}), bound {b_ms:.3f} ms ({bound_by}); "
+            f"accumulators exact, outputs within {ulps} bf16 ulp, max|err| "
+            f"{err:.4g}")
+        if lib_ok is False:
+            raise AssertionError(f"K3 {label} {name}: the library yardstick "
+                                 "computes another conv")
+        if name == "bridge":
+            tot.update(bridge_ms=ms, bridge_plain_ms=plain_ms,
+                       bridge_library_ms=lib_ms, bridge_bound_ms=b_ms,
+                       bridge_bound_by=bound_by)
+        else:
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("lib_ms", lib_ms), ("bound_ms", b_ms), ("ops", ops),
+                         ("bytes", nbytes)):
+                tot[k] = None if v is None or tot[k] is None else tot[k] + v
+        del x, wq, acc, got, xq, args, packed
+        torch.cuda.empty_cache()
+    _, tot["bound_by"] = bound(tot["ops"], tot["bytes"], PEAK_INT8_OPS)
+    log(f"[K3 {label}] the sixteen convs (one {N}-frame launch each): kernel "
+        f"{tot['ms']:.3f} ms = {tot['ops'] / tot['ms'] / 1e9:.1f} TOP/s, "
+        f"plain {tot['plain_ms']:.3f} ms, im2col + torch._int_mm "
+        f"{tot['lib_ms'] if tot['lib_ms'] is None else round(tot['lib_ms'], 3)}"
+        f" ms, bound {tot['bound_ms']:.3f} ms ({tot['bound_by']})"
+        + (f"; no library time for {no_lib}" if no_lib else ""))
+    return tot
+
+
+def phase_k3(dev):
+    """K3 at every shape set; returns its JSON entry (the main set under the
+    contract's keys, per 32-frame micro-batch over the sixteen convs)."""
+    sets = {label: phase_k3_set(dev, label) for label in K3_SHAPE_SETS}
+    main = sets["main"]
+    entry = {"name": "int8_conv3x3", "route": "cuda",
+             "source": "att_aspp_unet_tpu_torch/csrc/int8_conv3x3.cu",
+             "replaces": "att_aspp_unet_tpu/nn/quant.py:54",
+             "max_abs_err": max(t["max_abs_err"] for t in sets.values()),
+             "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+             "library_ms": main["lib_ms"]}
+    for k in ("bridge_ms", "bridge_plain_ms", "bridge_library_ms",
+              "bridge_bound_ms", "bridge_bound_by"):
+        entry[k] = main[k]
+    for label in ("tier2", "roi"):
+        t = sets[label]
+        entry.update({f"{label}_ms": t["ms"], f"{label}_plain_ms": t["plain_ms"],
+                      f"{label}_bound_ms": t["bound_ms"],
+                      f"{label}_bound_by": t["bound_by"],
+                      f"{label}_library_ms": t["lib_ms"]})
     return entry
 
 
@@ -405,24 +610,34 @@ def phase_k2(dev, sweeps, val):
     return entry
 
 
-def reset_launches():
+KERNELS = ("fused_double_cbr", "clahe_interp", "int8_conv3x3")
+
+
+def new_totals():
+    return dict.fromkeys(KERNELS, 0)
+
+
+def _wrappers():
     from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as ci
     from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as fc
+    from att_aspp_unet_tpu_torch.ops.kernels import int8_conv as ic
 
-    fc.fused_double_cbr.launches = 0
-    ci.clahe_interp.launches = 0
+    return {"fused_double_cbr": fc.fused_double_cbr,
+            "clahe_interp": ci.clahe_interp, "int8_conv3x3": ic.int8_conv3x3}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_launches(where: str, expect=None):
     """The counters since :func:`reset_launches`; exactly ``expect`` = (K1,
-    K2) launches where that is given, and every kernel the path runs (all of
-    them without ``expect``) must have launched."""
-    from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as ci
-    from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as fc
-
-    return hold_launches(where, {"fused_double_cbr": fc.fused_double_cbr.launches,
-                                 "clahe_interp": ci.clahe_interp.launches},
-                         expect)
+    K2[, K3]) launches where that is given (K3 0 where it is left out), and
+    every kernel the path runs (K1 and K2 without ``expect``) must have
+    launched."""
+    return hold_launches(where, {k: fn.launches
+                                 for k, fn in _wrappers().items()}, expect)
 
 
 def hold_launches(where: str, got, expect=None):
@@ -430,6 +645,8 @@ def hold_launches(where: str, got, expect=None):
     runs = [v for v, e in zip(got.values(), expect or (1, 1)) if e]
     if not runs or min(runs) <= 0:
         raise AssertionError(f"{where}: a kernel never launched: {got}")
+    if expect is not None:
+        expect = tuple(expect) + (0,) * (len(got) - len(expect))
     if expect is not None and tuple(got.values()) != tuple(expect):
         raise AssertionError(f"{where}: launches {got}, the path implies "
                              f"{expect}")
@@ -459,11 +676,12 @@ def abdomen_frames(n: int, best_true: int):
             if 1.0 - abs(i - best_true) / max(n * 0.25, 1) >= 0.25]
 
 
-def main_config(**predict):
+def main_config(conv_lowering="direct", **predict):
     from att_aspp_unet_tpu_torch.config import (Config, ModelConfig,
                                                 PredictConfig)
 
-    return Config(model=ModelConfig(base_c=BASE_C),
+    return Config(model=ModelConfig(base_c=BASE_C,
+                                    conv_lowering=conv_lowering),
                   predict=PredictConfig(tta_hflip=True, **predict))
 
 
@@ -682,7 +900,7 @@ def phase_cascade(dev, sweeps, bests, variables, thr, tmp, direct_engine,
     (tmp / "in840").mkdir()
     write_mha(tmp / "in840/case_840.mha",
               MetaImage(case, spacing=(0.28, 0.28, 1.0)))
-    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    totals = new_totals()
 
     # scout: ceil(N / b) micro-batches x 8 pairs (b = 32 for 140 frames:
     # 40 launches; 128 for 840: 56); tier 2: one micro-batch of the 8
@@ -888,6 +1106,260 @@ def phase_bulk(dev, sweeps, thr, engine):
         f"launches {launches}; cases that repeated steps with the exact "
         f"loops so far: {engine.exact_repeats}")
     return launches
+
+
+def int8_forward_launches(n_frames: int, batch: int) -> int:
+    """K3 launches of one int8 forward: two per pair and micro-batch."""
+    return 2 * forward_launches(n_frames, batch)
+
+
+def scout_launches(n_stack: int) -> int:
+    """K1 launches of a cascade's scout tier over ``n_stack`` frames."""
+    from att_aspp_unet_tpu_torch.infer.engine import scout_micro_batch
+
+    return forward_launches(n_stack, scout_micro_batch(n_stack, 128, 16))
+
+
+def phase_int8(dev, sweeps, bests, variables, thr, tmp):
+    """The ``--int8`` serving path with the repo's trained weights: the
+    engine calibrates on the 140-frame sweep (K1's calibration launches,
+    once), then serves the sweep and the 840-frame case directly, a cascade
+    and a bulk group (on the card's calibrated scales, which a new engine
+    takes without calibrating), ``infer-container --int8`` on the 840-frame
+    case (the ROI path, calibrated on its full frames), and two frames on
+    the CPU's plain versions with the same scales.  Gates: the bf16
+    engine's frame on every path, mask Dice >= 0.98 against the CPU, the
+    launches the path implies (no K1 launch on a served int8 forward)."""
+    import numpy as np
+    import torch
+
+    from att_aspp_unet_tpu_torch import cli
+    from att_aspp_unet_tpu_torch.infer.engine import AttAsppEngine
+    from att_aspp_unet_tpu_torch.io import read_json
+
+    totals = new_totals()
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    sweep, case = sweeps[0], np.concatenate(sweeps)
+    n = sweep.shape[0]
+    bf = AttAsppEngine(main_config(), variables, device=dev)
+    bf.predict_case(sweep[:16], SPACING, thr)                    # warm-up
+    eng = AttAsppEngine(main_config("int8"), variables, device=dev)
+    # calibration (16 frames: one CLAHE, one K1 launch per pair) and the
+    # first case
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.predict_case(sweep, SPACING, thr)
+    t_first = time.perf_counter() - t0
+    add(read_launches("int8 calibration + first case",
+                      (8, 2, int8_forward_launches(n, 16))))
+    log(f"[int8] first case, calibration included: {t_first:.3f} s; act "
+        f"absmax of d1_0 / u1_conv1: "
+        f"{float(eng.model.d1.act_absmax1):.4g} / "
+        f"{float(eng.model.u1.pair.act_absmax2):.4g}")
+    quant = eng.quant_variables()
+    frames = {}
+    for label, data in (("140", sweep), ("840", case)):
+        nn = data.shape[0]
+        reset_launches()
+        (f8, m8, ac8), t8s, t8c, t8 = timed_case(eng, data, thr)
+        frames[label] = f8
+        add(read_launches(f"int8 direct {label}",
+                          (0, 1, int8_forward_launches(nn, 16))))
+        (fb, mb, acb), _, _, tb = timed_case(bf, data, thr)
+        log(f"[int8] direct {label} frames, warm: int8 {t8:.3f} s = "
+            f"{nn / t8:.1f} frames/s (submit {t8s:.3f} s, collect {t8c:.3f} "
+            f"s), frame {f8}, AC {ac8:.2f} mm; bf16 {tb:.3f} s = "
+            f"{nn / tb:.1f} frames/s, frame {fb}, AC {acb:.2f} mm; mask Dice "
+            f"{dice(m8, mb):.5f}; int8 is x{tb / t8:.3f}")
+        if f8 != fb:
+            raise AssertionError(f"int8 direct {label}: frame {f8}, the bf16 "
+                                 f"engine's {fb}")
+
+    # card against the CPU's plain versions on the card's scales
+    lo = max(0, min(frames["140"], n - 2))
+    sub = sweep[lo:lo + 2]
+    t0 = time.perf_counter()
+    f_cpu, m_cpu, ac_cpu = AttAsppEngine(main_config("int8"), quant,
+                                         device="cpu").predict_case(
+        sub, SPACING, thr)
+    t_cpu = time.perf_counter() - t0
+    f_gpu, m_gpu, ac_gpu = eng.predict_case(sub, SPACING, thr)
+    d = dice(m_cpu, m_gpu)
+    log(f"[int8] frames {lo}..{lo + 1} (the int8 frame {frames['140']} among "
+        f"them): card frame {lo + f_gpu} AC {ac_gpu:.2f} mm, CPU plain "
+        f"frame {lo + f_cpu} AC {ac_cpu:.2f} mm ({t_cpu:.1f} s), mask Dice "
+        f"{d:.5f}, {int(((m_cpu > 0) != (m_gpu > 0)).sum())} pixels differ")
+    if f_cpu != f_gpu or d < 0.98:
+        raise AssertionError("int8: card and CPU plain versions disagree")
+
+    # the cascade and a bulk group, on the scales calibrated above
+    scout = str(REPO / SCOUT_WEIGHTS)
+    c8 = AttAsppEngine(main_config("int8", cascade=True,
+                                   cascade_scout_weights=scout), quant,
+                       device=dev)
+    cb = AttAsppEngine(main_config(cascade=True, cascade_scout_weights=scout),
+                       variables, device=dev)
+    for e in (c8, cb):
+        e.predict_case(sweep[:32], SPACING, thr)                 # warm-up
+    for label, data in (("140", sweep), ("840", case)):
+        nn = data.shape[0]
+        reset_launches()
+        (f8, m8, ac8), _, _, t8 = timed_case(c8, data, thr)
+        add(read_launches(f"int8 cascade {label}",
+                          (scout_launches(nn), 1,
+                           int8_forward_launches(8, 8))))
+        (fb, mb, acb), _, _, tb = timed_case(cb, data, thr)
+        log(f"[int8] cascade {label} frames, warm: int8 {t8:.3f} s = "
+            f"{nn / t8:.1f} frames/s, frame {f8}, AC {ac8:.2f} mm; bf16 "
+            f"{tb:.3f} s = {nn / tb:.1f} frames/s, frame {fb}, AC {acb:.2f} "
+            f"mm; mask Dice {dice(m8, mb):.5f}")
+        if f8 != fb:
+            raise AssertionError(f"int8 cascade {label}: frame {f8}, the "
+                                 f"bf16 engine's {fb}")
+    S = 4
+    group = np.stack(sweeps[:S])
+    n_pad = -(-n // 16) * 16
+    c8.predict_bulk(group, SPACING, thr)                         # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    got8 = c8.predict_bulk(group, SPACING, thr)
+    t8 = time.perf_counter() - t0
+    add(read_launches("int8 bulk", (scout_launches(S * n_pad), 1,
+                                    int8_forward_launches(S * 8, 16))))
+    t0 = time.perf_counter()
+    gotb = cb.predict_bulk(group, SPACING, thr)
+    tb = time.perf_counter() - t0
+    log(f"[int8] bulk S={S}: int8 {t8:.3f} s = {S / t8:.2f} sweeps/s, frames "
+        f"{[g[0] for g in got8]} ACs {[round(g[2], 2) for g in got8]} mm; "
+        f"bf16 {tb:.3f} s = {S / tb:.2f} sweeps/s, frames "
+        f"{[g[0] for g in gotb]} ACs {[round(g[2], 2) for g in gotb]} mm")
+    if [g[0] for g in got8] != [g[0] for g in gotb]:
+        raise AssertionError("int8 bulk: frames differ from the bf16 bulk")
+    del c8, cb
+
+    # the int8 engine on card 0 listed twice: bit for bit one device
+    two = AttAsppEngine(main_config("int8"), quant, devices=[dev] * 2)
+    sizes = shard_sizes(n, two.devices, 16)
+    reset_launches()
+    got = two.predict_case(sweep, SPACING, thr)
+    add(read_launches("int8 sharded 140", (0, len(sizes), sum(
+        int8_forward_launches(k, 16) for k in sizes))))
+    want = eng.predict_case(sweep, SPACING, thr)
+    log(f"[int8] card 0 twice: frame {got[0]} (one device {want[0]}), AC "
+        f"{got[2]:.4f} ({want[2]:.4f}), masks equal "
+        f"{bool(np.array_equal(got[1], want[1]))}")
+    if got[0] != want[0] or got[2] != want[2] or \
+            not np.array_equal(got[1], want[1]):
+        raise AssertionError("int8 sharded: differs from one device")
+    del two, eng, bf
+    torch.cuda.empty_cache()
+
+    # the container (ROI path) with --int8, against the bf16 container run
+    os.environ["MODEL_TAG"], os.environ["CASE_ID"] = "att_aspp", "case-840"
+    argv = ["infer-container", "--input", str(tmp / "cin"), "--output",
+            str(tmp / "cout8"), "--weights", str(REPO / MAIN_WEIGHTS),
+            "--base_c", str(BASE_C), "--device", dev, "--int8",
+            "--no-save-probabilities", "--no-debug-frames"]
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    n_sub = min(128, case.shape[0])
+    add(read_launches("int8 container", (8, 2, int8_forward_launches(n_sub,
+                                                                      16))))
+    f8 = read_json(tmp / "cout8/fetal-abdomen-frame-number.json")
+    fb = read_json(tmp / "cout/fetal-abdomen-frame-number.json")
+    # the ROI path picks the frame with the most pixels above 0.05; with
+    # these weights on 224 x 224 crops nearly every pixel of every crop is
+    # above it, so the pick is a tie of a few pixels: hold the probabilities
+    # (the JAX package's int8 ROI tolerance, mean |diff| < 0.02) and require
+    # the same frame, or a pick whose bf16 area is within 0.1 % of the bf16
+    # maximum
+    probs = {}
+    for label, cfg, v in (("bf16", main_config(), variables),
+                          ("int8", main_config("int8"), quant)):
+        e = AttAsppEngine(cfg, v, device=dev)
+        probs[label] = e.predict_roi(case)
+        del e
+    idx = np.linspace(0, case.shape[0] - 1, n_sub).astype(int).tolist()
+    areas = {k: (p > 0.05).sum(dim=(-2, -1)).cpu().numpy()
+             for k, p in probs.items()}
+    diff = (probs["int8"] - probs["bf16"]).abs()
+    mean_diff, max_diff = float(diff.mean()), float(diff.max())
+    a_b = areas["bf16"]
+    tie = (f8 in idx and fb in idx
+           and a_b[idx.index(f8)] >= 0.999 * a_b[idx.index(fb)])
+    log(f"[int8] infer-container --int8 on {case.shape[0]} frames: rc {rc}, "
+        f"{wall:.2f} s (calibration on 16 full frames, ROI path on {n_sub}); "
+        f"frame {f8}, the bf16 container's {fb}; ROI probabilities int8 vs "
+        f"bf16 mean |diff| {mean_diff:.3g}, max {max_diff:.3g}; pixels above "
+        f"0.05 in the bf16 run: frame {f8} "
+        f"{int(a_b[idx.index(f8)]) if f8 in idx else 'n/a'}, frame {fb} "
+        f"{int(a_b[idx.index(fb)]) if fb in idx else 'n/a'} of "
+        f"{int(probs['bf16'][0].numel())}")
+    del probs, diff
+    if rc != 0 or mean_diff >= 0.02 or not (f8 == fb or tie):
+        raise AssertionError(f"int8 container: rc {rc}, frame {f8} against "
+                             f"the bf16 container's {fb} (a tie: {tie}), "
+                             f"mean |diff| {mean_diff}")
+    return totals
+
+
+def phase_warm(dev, thr, tmp):
+    """``cli warm --int8`` in a subprocess, on a copy of the package whose
+    build directory is empty (it builds the three kernels and the host
+    ops), then a ``predict --int8`` subprocess on the 140-frame sweep from
+    the same copy, which must build nothing."""
+    import shutil
+
+    root = tmp / "warm_checkout"
+    shutil.copytree(REPO / "att_aspp_unet_tpu_torch",
+                    root / "att_aspp_unet_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    build = root / "att_aspp_unet_tpu_torch/build"
+    env = dict(os.environ, PYTHONPATH=str(root))
+    common = ["--weights", str(REPO / MAIN_WEIGHTS), "--base_c", str(BASE_C),
+              "--thr", str(thr), "--int8", "--device", dev]
+
+    def run(args, what):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m",
+                              "att_aspp_unet_tpu_torch.cli", *args, *common],
+                             cwd=root, env=env, capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"{what}: rc {res.returncode}\n"
+                                 f"{res.stderr[-3000:]}")
+        return res.stdout, time.perf_counter() - t0
+
+    def built():
+        return {p.name: p.stat().st_mtime_ns for p in build.iterdir()
+                if not p.name.endswith(".lock")}
+
+    out, t_warm = run(["warm", "--shapes", f"{N_FRAMES}x{FRAME_HW[0]}x"
+                       f"{FRAME_HW[1]}", "--tta"], "warm")
+    lines = [line for line in out.splitlines() if line.startswith("[warm]")]
+    log(f"[warm] cli warm subprocess into an empty build directory: "
+        f"{t_warm:.2f} s wall; {lines}")
+    before = built()
+    libs = sorted(k for k in before if k.endswith(".so"))
+    # three kernels and the host ops (on the CPU: the host ops)
+    if len(libs) != (4 if dev == "cuda" else 1) or \
+            not any(f"{N_FRAMES}x" in line for line in lines):
+        raise AssertionError(f"warm: built {libs}, printed {lines}")
+    _, t_pred = run(["predict", "--input_dir", str(tmp / "in140"),
+                     "--out_dir", str(tmp / "warm_out")], "predict")
+    after = built()
+    log(f"[warm] predict --int8 subprocess afterwards: {t_pred:.2f} s wall; "
+        f"build directory {'unchanged' if after == before else 'CHANGED'} "
+        f"({libs})")
+    if after != before or not (tmp / "warm_out/ac_results.csv").exists():
+        raise AssertionError("warm: the predict after warm built something "
+                             "or wrote no result")
 
 
 def phase_container(dev, case, abdomen_case, variables, tmp):
@@ -1292,7 +1764,7 @@ def phase_variants(dev, sweep, best_true, thr, tmp):
         x = preprocess_sweep(torch.as_tensor(sweep[lo:lo + 8]), p.img_size,
                              p.clahe_clip, p.clahe_grid,
                              p.median_kernel)[:, None]
-    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    totals = new_totals()
     rates = {}
     for label, kw in VARIANTS:
         mcfg = dataclasses.replace(ModelConfig(base_c=BASE_C), **kw)
@@ -1755,7 +2227,7 @@ def phase_train(dev, sweep, best_true, thr, tmp, train_set, val_set):
     base = ["train", "--train_dir", str(tr), "--val_dir", str(va),
             "--base_c", str(BASE_C), "--img_size", str(TRAIN_SIZE),
             "--batch_size", str(TRAIN_BATCH), "--device", f"{dev}:0"]
-    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    totals = new_totals()
 
     def train_cli(label, out, epochs_run, *extra):
         """A ``cli train`` call; K2 once per train step and val batch."""
@@ -1972,7 +2444,7 @@ def phase_compat(dev, case, sweeps, variables, tmp):
     root.mkdir()
     path = root / "case_840.mha"
     write_mha(path, MetaImage(case, spacing=(0.28,) * 3), compressed=False)
-    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    totals = new_totals()
 
     def add(launches):
         for k, v in launches.items():
@@ -2110,7 +2582,7 @@ def phase_entry(dev, case, sweeps, tmp):
     the container contract on both."""
     import numpy as np
 
-    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    totals = new_totals()
     n = case.shape[0]
     # the entry point writes the debug frames (their enhancement is a second
     # CLAHE launch) and dumps the probabilities, as the container does
@@ -2184,7 +2656,7 @@ def phase_tools(dev, sweeps, truths, train_sets, thr, tmp):
                                             read_mha, write_gray_png,
                                             write_mha)
 
-    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    totals = new_totals()
     root = tmp / "tools"
     secs = {}
 
@@ -2469,6 +2941,67 @@ def shard_sizes(n: int, devices, align: int):
             if n - k * per > 0]
 
 
+def sharded_cascade_and_bulk(dev, devs, sweep, case, variables, thr):
+    """The cascade (the 140-frame sweep, the 840-frame case) and a bulk
+    group of four sweeps over ``devs`` against the one-device engine: the
+    scout tier and the tier-2 forward split at their micro-batches, so
+    frame, mask and AC must be bit for bit equal."""
+    import numpy as np
+    import torch
+
+    from att_aspp_unet_tpu_torch.infer.engine import AttAsppEngine
+
+    totals = new_totals()
+
+    def timed(fn):
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ccfg = main_config(cascade=True,
+                       cascade_scout_weights=str(REPO / SCOUT_WEIGHTS))
+    c_one = AttAsppEngine(ccfg, variables, device=dev)
+    c_two = AttAsppEngine(ccfg, variables, devices=devs)
+    for e in (c_one, c_two):
+        e.predict_case(sweep[:32], SPACING, thr)                 # warm-up
+    for label, data in (("140", sweep), ("840", case)):
+        want, t1 = timed(lambda: c_one.predict_case(data, SPACING, thr))
+        reset_launches()
+        got, t2 = timed(lambda: c_two.predict_case(data, SPACING, thr))
+        for k, v in read_launches(f"sharded cascade {label}").items():
+            totals[k] += v
+        same = (got[0] == want[0] and got[2] == want[2]
+                and np.array_equal(got[1], want[1]))
+        log(f"[sharded] cascade {label} frames, {len(devs)} shards: frame "
+            f"{got[0]} (one device {want[0]}), AC {got[2]:.4f} "
+            f"({want[2]:.4f}), masks equal "
+            f"{bool(np.array_equal(got[1], want[1]))}; {t2:.3f} s against "
+            f"{t1:.3f} s on one device")
+        if not same:
+            raise AssertionError(f"sharded cascade {label}: differs from "
+                                 "one device")
+    n = sweep.shape[0]
+    group = np.stack([sweep] + [case[k * n:(k + 1) * n] for k in (1, 2, 3)])
+    want, t1 = timed(lambda: c_one.predict_bulk(group, SPACING, thr))
+    reset_launches()
+    got, t2 = timed(lambda: c_two.predict_bulk(group, SPACING, thr))
+    for k, v in read_launches("sharded bulk").items():
+        totals[k] += v
+    same = all(g[0] == w[0] and g[2] == w[2] and np.array_equal(g[1], w[1])
+               for g, w in zip(got, want))
+    log(f"[sharded] bulk S={group.shape[0]}, {len(devs)} shards: frames "
+        f"{[g[0] for g in got]} (one device {[w[0] for w in want]}), all "
+        f"masks and ACs equal {same}; {t2:.3f} s against {t1:.3f} s on one "
+        "device")
+    if not same:
+        raise AssertionError("sharded bulk: differs from one device")
+    return totals
+
+
 def phase_sharded(dev, sweep, case, variables, thr, direct_engine):
     """Frame-sharded serving: ``AttAsppEngine(devices=...)`` on the
     140-frame sweep and the 840-frame case, and ``BaselineEngine`` on the
@@ -2476,7 +3009,9 @@ def phase_sharded(dev, sweep, case, variables, thr, direct_engine):
     twice (so that the split and the gather run on a card even where there
     is one); against the one-device engines on the same card: probabilities
     within 1e-5, frame, mask and AC equal, K1 / K2 launches the per-shard
-    sums; frames/s beside the one-device engine's."""
+    sums; frames/s beside the one-device engine's.  The cascade (on the
+    sweep and the case) and a bulk group of four sweeps with card 0 listed
+    twice: frame, mask and AC bit for bit the one-device engine's."""
     import numpy as np
     import torch
 
@@ -2490,7 +3025,7 @@ def phase_sharded(dev, sweep, case, variables, thr, direct_engine):
     cards = visible_devices()
     layouts = [(f"every card ({len(cards)})", cards),
                ("card 0 twice", [cards[0]] * 2)]
-    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    totals = new_totals()
 
     def add(launches):
         for k, v in launches.items():
@@ -2544,6 +3079,9 @@ def phase_sharded(dev, sweep, case, variables, thr, direct_engine):
             f"{n / t_one[1]:.1f} frames/s")
         del p_one
         torch.cuda.empty_cache()
+
+    add(sharded_cascade_and_bulk(dev, [cards[0]] * 2, sweep, case,
+                                 variables, thr))
 
     bcfg = baseline_config()
     pu = bcfg.plain_unet
@@ -2716,7 +3254,7 @@ def phase_ddp(dev, train_set):
                     / max(float(w.double().abs().max()), 1e-30), k)
                    for k, w in want.items())
 
-    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    totals = new_totals()
     runs = [("(a) launcher", make_mesh_for_batch(MeshConfig(), TRAIN_BATCH)),
             ("(b) two ranks on card 0", [torch.device(dev)] * 2)]
     for label, devs in runs:
@@ -2820,7 +3358,8 @@ def main() -> int:
                     for m in ("PIL", "pandas", "matplotlib", "zlib")))
     t_start = time.perf_counter()
     # the six sweeps are generated by worker processes (numpy only) while
-    # the kernels build and the K1 phase runs
+    # the kernels build; the kernels are timed after that, with the host's
+    # cores free (busy cores delayed the launches that were timed)
     with ProcessPoolExecutor(
             max_workers=N_SWEEPS,
             mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -2830,22 +3369,20 @@ def main() -> int:
         train_futures = [pool.submit(make_train_set, *t)
                          for t in (TRAIN_SET, VAL_SET)]
         phase_build()
-        k1 = phase_k1(dev, ("main", "scout", "roi"))
         t0 = time.perf_counter()
         made = [f.result() for f in futures]
         val = [f.result() for f in val_futures]
         train_sets = [f.result() for f in train_futures]
-    # the launches of a few frames after the generators are done: with the
-    # host's cores busy, the gaps between short launches would be timed
-    phase_k1(dev, ("png", "psi", "variants"), k1)
     sweeps = [m[0] for m in made]
     bests = [m[1] for m in made]
     log(f"[data] {N_SWEEPS} synthetic sweeps {sweeps[0].shape} seeds "
         f"{SEED}..{SEED + N_SWEEPS - 1}, best frames {bests} (waited "
-        f"{time.perf_counter() - t0:.1f} s after the K1 phase)")
+        f"{time.perf_counter() - t0:.1f} s after the build)")
+    k1 = phase_k1(dev, tuple(K1_SHAPE_SETS))
     k2 = phase_k2(dev, sweeps, val)
+    k3 = phase_k3(dev)
     variables, thr = load_main()
-    totals = {"fused_double_cbr": 0, "clahe_interp": 0}
+    totals = new_totals()
 
     def add(launches):
         for k, v in launches.items():
@@ -2876,6 +3413,8 @@ def main() -> int:
         abdomen_case = [k * N_FRAMES + i for k, b in enumerate(bests)
                         for i in abdomen_frames(N_FRAMES, b)]
         add(phase_container(dev, case, abdomen_case, variables, tmp))
+        add(phase_int8(dev, sweeps, bests, variables, thr, tmp))
+        torch.cuda.empty_cache()
         add(phase_baseline(dev, sweeps[0], case, tmp))
         torch.cuda.empty_cache()
         add(phase_train(dev, sweeps[0], bests[0], thr, tmp, *train_sets))
@@ -2887,11 +3426,13 @@ def main() -> int:
         add(phase_tools(dev, sweeps, [m[2] for m in made], train_sets, thr,
                         tmp))
         add(phase_native(dev, case, sweeps, variables, thr, tmp))
+        phase_warm(dev, thr, tmp)
     k1["launches"] = totals["fused_double_cbr"]
     k2["launches"] = totals["clahe_interp"]
+    k3["launches"] = totals["int8_conv3x3"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(f"gpu: {smi}")
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

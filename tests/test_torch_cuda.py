@@ -14,6 +14,8 @@ import torch
 
 from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as tci
 from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as tfc
+from att_aspp_unet_tpu_torch.ops.kernels import int8_conv as tic
+from chip_smoke import bf16_ulps
 
 
 @pytest.fixture
@@ -408,3 +410,105 @@ def test_kernels_on_the_last_card_while_the_current_is_card_0(rng,
         assert out.device == last
         assert torch.equal(out, tci.clahe_interp_reference(blocks, luts, wts))
         assert torch.cuda.current_device() == 0
+
+
+# K1's calibration mode (the int8 path): absmax of the intermediate against
+# the plain version's, on both paths; the served output unchanged.
+@pytest.mark.cuda
+@pytest.mark.parametrize("wgmma", [False, True])
+@pytest.mark.parametrize("N,cin,cmid,cout,H,W",
+                         [(2, 1, 48, 48, 64, 72), (2, 96, 48, 48, 72, 40),
+                          (1, 768, 384, 384, 64, 64), (2, 48, 80, 72, 50, 23)])
+def test_fused_double_cbr_calibration_absmax(rng, cuda_device, N, cin, cmid,
+                                             cout, H, W, wgmma):
+    if wgmma and not tfc.wgmma_takes(cin, cmid, cout):
+        pytest.skip("the wgmma path does not take this shape")
+    args = _pair_args(rng, cuda_device, N, cin, cmid, cout, H, W)
+    packed = tfc.prepack_pair(args[1], args[4], wgmma=wgmma)
+    served = tfc.fused_double_cbr(*args, packed=packed)
+    amax = torch.zeros((), dtype=torch.float32, device=cuda_device)
+    got = tfc.fused_double_cbr(*args, packed=packed, absmax=amax)
+    torch.cuda.synchronize()
+    assert torch.equal(got, served)
+    want = torch.zeros((), dtype=torch.float32, device=cuda_device)
+    tfc.fused_double_cbr_reference(*args, absmax=want)
+    assert float(amax) > 0
+    assert abs(float(amax) - float(want)) <= 2e-2 * float(want)
+    # a running max: a second launch on a larger value keeps it
+    big = torch.full((), 1e30, dtype=torch.float32, device=cuda_device)
+    before = float(big)
+    tfc.fused_double_cbr(*args, packed=packed, absmax=big)
+    assert float(big) == before
+
+
+def _int8_args(rng, dev, N, cin, cout, H, W):
+    """K3's arguments on ``dev``: a bf16 channel-last x spanning the int8
+    range (some values clip), int8 weights with their scales, s_x, folded
+    BN."""
+    x = torch.from_numpy((rng.standard_normal((N, cin, H, W)) * 2)
+                         .astype(np.float32))
+    wq = torch.from_numpy(rng.integers(-127, 128, (cout, 9 * cin))
+                          .astype(np.int8))
+    ws = torch.from_numpy((rng.random(cout) * 1e-3 + 1e-4).astype(np.float32))
+    s_x = torch.tensor(5.0 / 127, dtype=torch.float32)
+    sc = torch.from_numpy((rng.random(cout) + 0.5).astype(np.float32))
+    bi = torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(np.float32))
+    bf = torch.bfloat16
+    return (x.to(dev, bf).contiguous(memory_format=torch.channels_last),
+            wq.to(dev), ws.to(dev), s_x.to(dev), sc.to(dev), bi.to(dev))
+
+
+# The conv shapes K3 takes on the int8 path (N, Cin, Cout, H = W): the
+# sixteen convs of the base_c 48 model at 512 (the direct path's 32-frame
+# micro-batch cut to 2 frames), at 224 (the ROI path), the --no_aspp bridge
+# conv, and ragged ones (frames no multiple of the tile, channel counts no
+# multiple of 8 or 64, Cin = 1 with several row blocks).
+INT8_CONVS = sorted({(2, cin, cmid, hw) for _, cin, cmid, _, hw in
+                     tfc.model_pairs(48, 512)}
+                    | {(2, cmid, cout, hw) for _, _, cmid, cout, hw in
+                       tfc.model_pairs(48, 512)}
+                    | {(2, cin, cmid, hw) for _, cin, cmid, _, hw in
+                       tfc.model_pairs(48, 224)}
+                    | {(2, 384, 768, 32)})
+INT8_EDGE = [(1, 1, 80, 37, 50), (3, 5, 7, 9, 7), (2, 24, 40, 33, 47),
+             (2, 48, 8, 20, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,cin,cout,hw", INT8_CONVS)
+def test_int8_conv3x3_kernel_matches_plain(rng, cuda_device, N, cin, cout, hw):
+    """Accumulators exact; the bf16 outputs within one ulp of the plain
+    version (its f32 affine is the kernel's fma, up to double rounding)."""
+    args = _int8_args(rng, cuda_device, N, cin, cout, hw, hw)
+    before = tic.int8_conv3x3.launches
+    acc = tic.int8_conv3x3(*args, raw=True)
+    got = tic.int8_conv3x3(*args)
+    torch.cuda.synchronize()
+    assert tic.int8_conv3x3.launches == before + 2
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(acc, tic.int8_conv3x3_reference(*args, raw=True))
+    assert bf16_ulps(got, tic.int8_conv3x3_reference(*args)) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,cin,cout,H,W", INT8_EDGE)
+def test_int8_conv3x3_kernel_edge_shapes(rng, cuda_device, N, cin, cout, H, W):
+    args = _int8_args(rng, cuda_device, N, cin, cout, H, W)
+    assert torch.equal(tic.int8_conv3x3(*args, raw=True),
+                       tic.int8_conv3x3_reference(*args, raw=True))
+    assert bf16_ulps(tic.int8_conv3x3(*args),
+                      tic.int8_conv3x3_reference(*args)) <= 1
+
+
+@pytest.mark.cuda
+def test_int8_conv3x3_prepacked_and_rejects(rng, cuda_device):
+    args = _int8_args(rng, cuda_device, 2, 48, 96, 32, 32)
+    packed = tic.prepack_int8_weight(args[1])
+    assert torch.equal(tic.int8_conv3x3(*args, packed=packed),
+                       tic.int8_conv3x3(*args))
+    with pytest.raises(ValueError):
+        tic.int8_conv3x3(*args, packed=packed[:-16])
+    with pytest.raises(ValueError, match="channels_last"):
+        tic.int8_conv3x3(args[0].contiguous(), *args[1:])
+    with pytest.raises(TypeError):
+        tic.int8_conv3x3(args[0].float(), *args[1:])

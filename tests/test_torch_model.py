@@ -22,10 +22,13 @@ from .test_torch_threads import one_torch_thread  # noqa: F401
 WEIGHTS = Path(__file__).resolve().parents[1] / "resources/synthetic/weights.npz"
 
 
-def random_variables(base_c: int, seed: int = 0, hw: int = 32):
-    """A flax variables tree of the v1 model with every leaf drawn from a
-    numpy generator (BN variances positive, scales near 1)."""
-    model = JModel.from_config(JModelConfig(base_c=base_c,
+def random_variables(base_c: int, seed: int = 0, hw: int = 32,
+                     use_aspp: bool = True, gain: float = 1.0):
+    """A flax variables tree of the v1 model (with the ASPP or the
+    ``--no_aspp`` bridge) with every leaf drawn from a numpy generator (BN
+    variances positive, scales near 1, kernels of variance gain /
+    fan-in)."""
+    model = JModel.from_config(JModelConfig(base_c=base_c, use_aspp=use_aspp,
                                             compute_dtype="float32"))
     shapes = jax.eval_shape(
         lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, hw, hw, 1)),
@@ -43,7 +46,8 @@ def random_variables(base_c: int, seed: int = 0, hw: int = 32):
         if name == "bias":
             return (rng.standard_normal(s.shape) * 0.1).astype(np.float32)
         fan_in = int(np.prod(s.shape[:-1]))
-        return (rng.standard_normal(s.shape) / np.sqrt(fan_in)).astype(np.float32)
+        return (rng.standard_normal(s.shape) / np.sqrt(fan_in / gain)
+                ).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 

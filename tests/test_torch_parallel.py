@@ -1,11 +1,11 @@
 """The port's data axis and frame-sharded serving against the JAX package on
 the CPU: ``make_mesh_for_batch`` against the JAX function, and the port's
-``AttAsppEngine`` / ``BaselineEngine`` with ``devices`` (2 and 4 CPU
+``AttAsppEngine`` / ``BaselineEngine`` with ``devices`` (2, 3 and 4 CPU
 shards) against the JAX engines on the 8-device virtual CPU mesh and
 against the port's one-device engines, on the same weights.  f32 at a tiny
 size (base_c 4, network input 32); probabilities within rtol/atol 1e-5 (the
 tolerance of ``tests/test_sharded_inference.py``), frames, masks and ACs
-equal."""
+equal; the cascade and the bulk path bit for bit equal to one device."""
 
 import dataclasses
 
@@ -28,6 +28,8 @@ from att_aspp_unet_tpu_torch.config import (Config, MeshConfig, ModelConfig,
                                             PreprocessConfig)
 from att_aspp_unet_tpu_torch.infer import engine as tengine
 from att_aspp_unet_tpu_torch.parallel import mesh as tmesh
+from att_aspp_unet_tpu_torch.utils.convert import init_variables
+from att_aspp_unet_tpu_torch.utils.npz_weights import save_npz_variables
 
 from .test_torch_model import random_variables
 from .test_torch_threads import one_torch_thread  # noqa: F401
@@ -38,6 +40,10 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 PREDICT = dict(frame_batch=2, roi_size=32, subsample_frames=6)
 PLAIN = dict(base_c=4, max_c=16, n_stages=3, patch_size=(32, 32),
              compute_dtype="float32")
+# the cascade of the sharded cascade and bulk tests: scout micro-batches of
+# 2 frames, tier-2 micro-batches of 2 (shards are cut at both)
+CASCADE = dict(cascade=True, cascade_img_size=16, cascade_scout_batch=2,
+               bulk_frame_batch=2)
 
 
 def _sweep(seed, n, h, w):
@@ -61,7 +67,7 @@ def _ellipses(seed, n, h, w):
 
 
 @pytest.fixture(scope="module")
-def att():
+def att(tmp_path_factory):
     """Weights, both packages' configs, the sweeps and every JAX result (one
     one-device and one 8-device mesh engine, each path run once)."""
     variables = random_variables(4, seed=7)
@@ -80,8 +86,28 @@ def att():
     sharded = jengine.AttAsppEngine(jcfg, variables,
                                     mesh=jmesh.make_mesh(JMeshConfig()))
     thr = float(np.quantile(np.asarray(single.predict_full(case)), 0.9))
+    # the distilled scout (base_c 2) of the cascade tests, one file for both
+    # packages
+    scout = tmp_path_factory.mktemp("scout") / "scout.npz"
+    save_npz_variables(init_variables(ModelConfig(base_c=2), seed=5), scout)
+    group = np.stack([_ellipses(s, 11, 48, 56) for s in (2, 8, 9)])
+    mesh = jmesh.make_mesh(JMeshConfig())
+    cascade = dict(CASCADE, cascade_scouts=11)
+    jc = dataclasses.replace(jcfg, predict=dataclasses.replace(
+        jcfg.predict, **cascade, cascade_scout_weights=str(scout),
+        cascade_scout_base_c=2, cascade_scout_thr=0.5))
+    jb = dataclasses.replace(jcfg, predict=dataclasses.replace(
+        jcfg.predict, **cascade))
+    # the bulk group's first sweep is ``case``: its result is the JAX mesh
+    # engine's cascade of the case with the main model as scout
+    jbulk = jengine.AttAsppEngine(jb, variables, mesh=mesh).predict_bulk(
+        group, SPACING, threshold=thr)
     return dict(
         vnp=vnp, cfg=cfg, full=full, case=case, roi=roi, thr=thr,
+        scout=str(scout), group=group, jbulk=jbulk,
+        jcascade={"direct": jbulk[0], "scout": jengine.AttAsppEngine(
+            jc, variables, mesh=mesh).predict_case(case, SPACING,
+                                                   threshold=thr)},
         jfull=np.asarray(sharded.predict_full(full)),
         jcase=sharded.predict_case(case, SPACING, threshold=thr),
         jcase_single=single.predict_case(case, SPACING, threshold=thr),
@@ -205,6 +231,61 @@ def test_split_frames_is_the_stage_frames_layout_without_padding(n, d,
     assert tmesh.pad_to_multiple(n, d * align) == n + pad
 
 
+def _same(a, b):
+    """Two (frame, mask, AC) results bit for bit equal."""
+    assert a[0] == int(b[0]) and a[2] == b[2]
+    np.testing.assert_array_equal(a[1], np.asarray(b[1]))
+
+
+def _cascade_cfg(att, scout, **kw):
+    extra = (dict(cascade_scout_weights=att["scout"], cascade_scout_base_c=2,
+                  cascade_scout_thr=0.5) if scout else {})
+    return dataclasses.replace(att["cfg"], predict=dataclasses.replace(
+        att["cfg"].predict, **CASCADE, **extra, **kw))
+
+
+@pytest.mark.parametrize("scout", [False, True])
+@pytest.mark.parametrize("d", [2, 3])
+def test_sharded_cascade_equals_one_device_and_jax_mesh(att, d, scout):
+    """The scout tier splits at scout micro-batches (11 frames over 2: 6 +
+    5, over 3: 4 + 4 + 3), promotion runs on the primary device from the
+    gathered keys, tier 2 splits again: with 5 frames promoted the result
+    is bit for bit the one-device engine's; with every frame promoted it
+    equals the JAX mesh engine's cascade (frame, mask, AC)."""
+    for promoted, want in ((4, None), (11, att["jcascade"]["direct" if not
+                                                           scout else
+                                                           "scout"])):
+        cfg = _cascade_cfg(att, scout, cascade_scouts=promoted)
+        many = tengine.AttAsppEngine(cfg, att["vnp"], devices=["cpu"] * d)
+        got = many.predict_case(att["case"], SPACING, threshold=att["thr"])
+        one = tengine.AttAsppEngine(cfg, att["vnp"], device="cpu") \
+            .predict_case(att["case"], SPACING, threshold=att["thr"])
+        _same(got, one)
+        if want is not None:
+            _same(got, want)
+        assert got[1].any()
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_sharded_bulk_equals_one_device_and_jax_mesh(att, d):
+    """A group of 3 sweeps of 11 frames (padded to 12 each): its 36 scout
+    frames split at scout micro-batches, the promoted frames of all sweeps
+    split at tier-2 micro-batches; bit for bit the one-device engine's with
+    4 promoted per sweep, the JAX mesh engine's (which shards the sweep
+    axis) with every frame promoted."""
+    for promoted, want in ((4, None), (11, att["jbulk"])):
+        cfg = _cascade_cfg(att, False, cascade_scouts=promoted)
+        many = tengine.AttAsppEngine(cfg, att["vnp"], devices=["cpu"] * d)
+        got = many.predict_bulk(att["group"], SPACING, threshold=att["thr"])
+        one = tengine.AttAsppEngine(cfg, att["vnp"], device="cpu") \
+            .predict_bulk(att["group"], SPACING, threshold=att["thr"])
+        assert len(got) == 3
+        for s in range(3):
+            _same(got[s], one[s])
+            if want is not None:
+                _same(got[s], want[s])
+
+
 def test_devices_that_are_not_there_raise(att):
     with pytest.raises((RuntimeError, ValueError)):
         tengine.AttAsppEngine(att["cfg"], att["vnp"], devices=["cuda:0"])
@@ -212,18 +293,6 @@ def test_devices_that_are_not_there_raise(att):
         tmesh.resolve_devices([])
     with pytest.raises(ValueError):
         tmesh.make_mesh(MeshConfig(model_parallelism=3), ["cpu"] * 4)
-
-
-def test_cascade_and_bulk_raise_with_several_devices(att):
-    """They run on one device: with several they raise, they do not quietly
-    serve on the primary."""
-    cfg = dataclasses.replace(att["cfg"], predict=dataclasses.replace(
-        att["cfg"].predict, cascade=True, cascade_img_size=32))
-    eng = tengine.AttAsppEngine(cfg, att["vnp"], devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError):
-        eng.predict_case(att["case"], SPACING)
-    with pytest.raises(NotImplementedError):
-        eng.predict_bulk(np.stack([att["case"]] * 2), SPACING)
 
 
 FAKE_NVCC = """#!/bin/sh

@@ -241,7 +241,8 @@ def test_train_refuses_cuda_without_a_card_and_finetune_without_weights(
 def test_port_imports_without_jax_or_the_jax_package():
     """Every module of the port imports in a process where ``jax``,
     ``jaxlib``, ``flax``, ``optax``, ``orbax`` and ``att_aspp_unet_tpu`` cannot
-    be imported, and ``chip_smoke.py`` too."""
+    be imported, and ``chip_smoke.py`` too; ``--int8`` and ``cli warm`` (the
+    int8 path calibrated and served on the CPU) run there."""
     code = r"""
 import importlib, pkgutil, sys
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "att_aspp_unet_tpu"}
@@ -256,6 +257,11 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from att_aspp_unet_tpu_torch import cli
+args = cli.build_parser().parse_args(["infer-container", "--int8"])
+assert cli._config(args).model.conv_lowering == "int8"
+assert cli.main(["warm", "--device", "cpu", "--base_c", "4", "--img-size",
+                 "32", "--shapes", "2x32x32", "--thr", "0.5", "--int8"]) == 0
 assert not BLOCKED & {m.split(".")[0] for m in sys.modules}
 print(len(names))
 """
