@@ -20,7 +20,8 @@ torch ops, as the JAX package left them to XLA.
 The int8 serving mode (``ModelConfig.conv_lowering="int8"``, ``nn/quant.py``)
 replaces every 3x3 ConvBNReLU by its post-training-quantized form: a pair is
 two launches of kernel K3 (``ops/kernels/int8_conv.int8_conv3x3``,
-:class:`Int8CBRPair`), the ``--no_aspp`` bridge conv one
+:class:`Int8CBRPair`, the intermediate in int8), the ``--no_aspp`` bridge
+conv one
 (:class:`Int8ConvBNReLU`).  Its activation scales come from a calibration
 forward of the direct model, during which each pair and bridge conv records
 the absmax of its convs' inputs (``record``): the pair's input directly, the
@@ -124,13 +125,15 @@ class FusedCBRPair(_Prepacked, nn.Module):
 
 
 class Int8CBRPair(_Prepacked, nn.Module):
-    """The int8 form of :class:`FusedCBRPair`: two K3 launches, each
-    quantizing its input with its calibrated per-tensor scale ``s_x1`` /
-    ``s_x2`` (computed from ``act_absmax1`` / ``2``), int8 weights ``w1`` /
-    ``w2`` packed (Cout, 9*Cin) with their per-channel ``w_scale1`` / ``2``,
-    and the folded BN.  The intermediate travels in the compute dtype, as
-    in the JAX package.  On a card the weights are put into the kernel's
-    order once, as :class:`FusedCBRPair` does."""
+    """The int8 form of :class:`FusedCBRPair`: two K3 launches, each conv
+    with its calibrated per-tensor input scale ``s_x1`` / ``s_x2`` (computed
+    from ``act_absmax1`` / ``2``), int8 weights ``w1`` / ``w2`` packed
+    (Cout, 9*Cin) with their per-channel ``w_scale1`` / ``2``, and the folded
+    BN.  The intermediate travels as int8: the first launch quantizes its
+    result, rounded to the compute dtype, with ``s_x2`` (what the second
+    conv quantized in the JAX package: the same numbers), and the second
+    reads it as its quantized input.  On a card the weights are put into
+    the kernel's order once, as :class:`FusedCBRPair` does."""
 
     def __init__(self, cin: int, cmid: int, cout: int, device=None,
                  dtype=torch.bfloat16):
@@ -150,10 +153,10 @@ class Int8CBRPair(_Prepacked, nn.Module):
         p1, p2 = (self._prepacked(lambda *w: tuple(map(prepack_int8_weight, w)),
                                   self.w1, self.w2)
                   if x.device.type == "cuda" else (None, None))
-        h = int8_conv3x3(x, self.w1, self.w_scale1, self.s_x1, self.s1,
-                         self.b1, packed=p1)
-        return int8_conv3x3(h, self.w2, self.w_scale2, self.s_x2, self.s2,
-                            self.b2, packed=p2)
+        hq = int8_conv3x3(x, self.w1, self.w_scale1, self.s_x1, self.s1,
+                          self.b1, packed=p1, s_out=self.s_x2)
+        return int8_conv3x3(hq, self.w2, self.w_scale2, self.s_x2, self.s2,
+                            self.b2, packed=p2, dtype=x.dtype)
 
 
 class ConvBNReLU(nn.Module):

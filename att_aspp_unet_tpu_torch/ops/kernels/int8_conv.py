@@ -12,13 +12,24 @@ The function, in the JAX package's order of roundings: the input quantized
 per tensor (``quantize_act``: ``x / s_x`` divided, rounded half to even,
 clipped to +-127), the conv of the int8 values with int32 accumulation, the
 dequant ``f32(acc) * (s_x * s_w[c])`` rounded to the compute dtype, then the
-folded BatchNorm affine in f32 and ReLU, in the compute dtype again.
+folded BatchNorm affine in f32 and ReLU, in the compute dtype again.  Two
+modes keep a pair's intermediate in int8 without changing a number: the
+output quantized with the next conv's scale (``s_out``), and an input that
+is already quantized (an int8 ``x``).
+
+The kernel has two paths: a wgmma one for input channels that are whole
+16-byte groups (or one channel) and output channels that are a multiple of
+48, and an mma.sync one for every shape.  Each reads the weights in an order
+of its own; :func:`prepack_int8_weight` decides the path and its plan from
+the channel counts (the shared-memory layout is computed here as the CUDA
+source computes it) and puts the canonical (Cout, 9*Cin) weights into that
+order, once per weight set.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +37,8 @@ import torch.nn.functional as F
 from . import _build
 from .fused_conv import unpack_conv_weight
 
-_MC, _KC = 64, 32          # the kernel's row block and K-step (bytes)
+_MC, _KC = 64, 32          # the mma.sync path's row block and K-step (bytes)
+SMEM_LIMIT = 232448        # bytes a block may use on sm_90 (227 KB)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -59,31 +71,149 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.to(f64) * b.to(f64) + c.to(f64)).to(torch.float32)
 
 
+def int8_epilogue(acc: torch.Tensor, w_scale: torch.Tensor,
+                  s_x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The dequant, folded BN and ReLU of int32 accumulators (N, Cout, H, W)
+    in the kernel's order, rounding where ``dtype`` rounds (bf16: the
+    dequantized conv and the result; f32: nowhere)."""
+    f32 = torch.float32
+    fac = s_x.to(f32) * w_scale.to(f32)
+    y = (acc.to(f32) * fac[None, :, None, None]).to(dtype).to(f32)
+    y = _fma_f32(y, scale.to(f32)[None, :, None, None],
+                 bias.to(f32)[None, :, None, None])
+    return torch.relu(y).to(dtype)
+
+
 def int8_conv3x3_reference(x: torch.Tensor, wq: torch.Tensor,
                            w_scale: torch.Tensor, s_x: torch.Tensor,
                            scale: torch.Tensor, bias: torch.Tensor,
-                           raw: bool = False) -> torch.Tensor:
-    """Plain version: the exact integer conv of the quantized input, then
-    the epilogue in the kernel's order, rounding where ``x.dtype`` rounds
-    (bf16: the dequantized conv and the result; f32: nowhere).  ``raw``
-    returns the int32 accumulators."""
-    f32, dt = torch.float32, x.dtype
-    acc = int_conv3x3(quantize_act(x, s_x), wq)
+                           raw: bool = False,
+                           s_out: Optional[torch.Tensor] = None,
+                           dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """Plain version: the exact integer conv of the quantized input (an int8
+    ``x`` is taken as quantized already), then :func:`int8_epilogue` in
+    ``dtype`` (default: a float ``x``'s dtype, bf16 for an int8 ``x``).
+    ``raw`` returns the int32 accumulators; ``s_out`` returns the result
+    quantized with it (``quantize_act``), int8."""
+    xq = x if x.dtype == torch.int8 else quantize_act(x, s_x)
+    acc = int_conv3x3(xq, wq)
     if raw:
         return acc
-    fac = s_x.to(f32) * w_scale.to(f32)
-    y = (acc.to(f32) * fac[None, :, None, None]).to(dt).to(f32)
-    y = _fma_f32(y, scale.to(f32)[None, :, None, None],
-                 bias.to(f32)[None, :, None, None])
-    return torch.relu(y).to(dt)
+    dt = dtype or (torch.bfloat16 if x.dtype == torch.int8 else x.dtype)
+    y = int8_epilogue(acc, w_scale, s_x, scale, bias, dt)
+    return y if s_out is None else quantize_act(y, s_out)
 
 
-def prepack_int8_weight(wq: torch.Tensor) -> torch.Tensor:
-    """(Cout, 9*Cin) int8 in (ky, kx, ci) order -> the kernel's order, 1-D:
-    rows zero-padded to a multiple of 64 and cut into blocks of 64; K (the
-    Cin channels of a tap, or the nine taps where Cin = 1) zero-padded to a
-    multiple of 32 and cut into chunks; block-major, then chunk, each chunk
-    ``[tap][64 rows][32]`` contiguous."""
+# --------------------------------------------------------------- the paths
+
+class WgPlan(NamedTuple):
+    """How the wgmma path runs a conv: ``bn`` output channels per wgmma (48,
+    96 or 192), ``mw`` M chunks of 64 pixels per warpgroup, ``nbp`` 1 where
+    the two warpgroups split the pixels and 2 where they split the output
+    channels, ``tps`` taps per weight stage (3, or 1 where the input tile
+    leaves no room), ``stages`` weight stages in the ring."""
+    bn: int
+    mw: int
+    nbp: int
+    tps: int
+    stages: int
+
+
+# N per instruction -> M chunks per warpgroup: the (bn, mw) the CUDA source
+# instantiates, each with three taps per stage, or one
+WG_INSTANCES = {48: 2, 96: 1, 192: 1}
+WG_MAX_STAGES = 16
+WG_NBUF, WG_CHUNK = 2, 64        # tile chunks in flight, bytes a pixel
+SMEM_TWO_CTAS = 113 * 1024       # a block's share where two share an SM
+
+
+def _wg_sizes(cin: int, bn: int, mw: int, nbp: int, tps: int):
+    """(input tile, one weight stage, the warps' parking slots, which also
+    stage the tile's chunks) in bytes, as the kernel lays them out for a
+    frame at least 64 wide (narrower frames take less)."""
+    nch = 2 * mw if nbp == 1 else mw
+    in_p = (nch + 2) * 66
+    slots = 64 * (2 * bn + 16)
+    if cin == 1:
+        return 2 * nch * 64 * 16 + _round_up(in_p, 16), 32 * nbp * bn, slots
+    in_pix = _round_up(in_p, 8)
+    return (_round_up(cin // 16, 2) * in_pix * 16, tps * 32 * nbp * bn,
+            max(slots, WG_NBUF * in_pix * WG_CHUNK))
+
+
+def _wg_fixed(tile: int, slots: int) -> int:
+    """The bytes before the barriers but the weight stages."""
+    return _round_up(tile, 128) + 128 + slots
+
+
+def wgmma_smem_bytes(cin: int, plan: WgPlan) -> int:
+    """Shared memory of the wgmma path's tile for ``plan``."""
+    tile, stage, slots = _wg_sizes(cin, *plan[:4])
+    return _round_up(_wg_fixed(tile, slots) + plan.stages * stage, 8) \
+        + 8 * (plan.stages + WG_NBUF)
+
+
+def make_plan(cin: int, cout: int, bn: int, mw: int, nbp: int,
+              tps: int) -> Optional[WgPlan]:
+    """The plan (bn, mw, nbp, tps) for Cin -> Cout with as many weight
+    stages as its steps use and shared memory holds (at most
+    ``WG_MAX_STAGES``, at least three, two for one input channel, whose
+    passes are one step each): within a block's share
+    of an SM that two blocks share where the accumulators leave registers
+    for two (bn * mw <= 96), else within the whole; None where the kernel
+    does not take it."""
+    if (WG_INSTANCES.get(bn) != mw or tps not in (1, 3) or nbp not in (1, 2)
+            or cout % (nbp * bn) or not (cin == 1 or cin % 16 == 0)):
+        return None
+    tile, stage, slots = _wg_sizes(cin, bn, mw, nbp, tps)
+    spp = 1 if cin == 1 else _round_up(cin // 16, 2) // 2 * (9 // tps)
+    steps = cout // (nbp * bn) * spp
+    least = 2 if cin == 1 else 3
+    for budget in ((SMEM_TWO_CTAS, SMEM_LIMIT) if bn * mw <= 96
+                   else (SMEM_LIMIT,)):
+        room = (budget - _wg_fixed(tile, slots) - 8
+                - 8 * (WG_MAX_STAGES + WG_NBUF)) // stage
+        if room >= least:
+            return WgPlan(bn, mw, nbp, tps,
+                          max(least, min(steps, WG_MAX_STAGES, room)))
+    return None
+
+
+def wgmma_plan(cin: int, cout: int) -> Optional[WgPlan]:
+    """The wgmma path's plan for Cin -> Cout, None where it does not take
+    the shape: N per instruction the widest of 192, 96, 48 that divides
+    Cout; the warpgroups split the pixels where the tile fits, else the
+    output channels, with three taps per weight stage where that fits,
+    else one."""
+    if cout % 48 or not (cin == 1 or cin % 16 == 0):
+        return None
+    bn = 192 if cout % 192 == 0 else 96 if cout % 96 == 0 else 48
+    for nbp, tps in ((1, 3), (2, 3), (2, 1)):
+        plan = make_plan(cin, cout, bn, WG_INSTANCES[bn], nbp, tps)
+        if plan is not None:
+            return plan
+    return None
+
+
+def wgmma_takes(cin: int, cout: int) -> bool:
+    """Whether the wgmma path runs Cin -> Cout."""
+    return wgmma_plan(cin, cout) is not None
+
+
+class PackedInt8(NamedTuple):
+    """A conv's int8 weights in the kernel's order (1-D) and the wgmma
+    plan they are for (None: the mma.sync path's order)."""
+    w: torch.Tensor
+    plan: Optional[WgPlan] = None
+
+
+def _prepack_mma(wq: torch.Tensor) -> torch.Tensor:
+    """The mma.sync path's order: rows zero-padded to a multiple of 64 and
+    cut into blocks of 64; K (the Cin channels of a tap, or the nine taps
+    where Cin = 1) zero-padded to a multiple of 32 and cut into chunks;
+    block-major, then chunk, each chunk ``[tap][64 rows][32]``."""
     m, cin = wq.shape[0], wq.shape[1] // 9
     taps, k = (1, 9) if cin == 1 else (9, cin)
     mpad, kpad = _round_up(m, _MC), _round_up(k, _KC)
@@ -93,44 +223,108 @@ def prepack_int8_weight(wq: torch.Tensor) -> torch.Tensor:
     return w5.permute(0, 3, 2, 1, 4).reshape(-1).contiguous()
 
 
-def unpack_int8_prepacked(packed: torch.Tensor, m: int,
+def _prepack_wgmma(wq: torch.Tensor, plan: WgPlan) -> torch.Tensor:
+    """The wgmma path's order: one weight stage per kernel step, in step
+    order (pass of ``nbp * bn`` output channels, k32 step of input
+    channels, group of ``tps`` taps), each ``[tap][2][rows][16]`` (K-major
+    core matrices: 8 output channels x 16 input channels); where Cin = 1 one
+    stage per pass, ``[2][rows][16]`` with K = the nine taps."""
+    cout, cin = wq.shape[0], wq.shape[1] // 9
+    rows = plan.nbp * plan.bn
+    passes = cout // rows
+    if cin == 1:
+        w = wq.new_zeros(cout, 32)
+        w[:, :9] = wq
+        return w.reshape(passes, rows, 2, 16).permute(0, 2, 1, 3) \
+            .reshape(-1).contiguous()
+    ng = _round_up(cin // 16, 2)
+    w3 = wq.new_zeros(cout, 9, ng * 16)
+    w3[:, :, :cin] = wq.reshape(cout, 9, cin)
+    w7 = w3.reshape(passes, rows, 9 // plan.tps, plan.tps, ng // 2, 2, 16)
+    return w7.permute(0, 4, 2, 3, 5, 1, 6).reshape(-1).contiguous()
+
+
+def prepack_int8_weight(wq: torch.Tensor, wgmma: Optional[bool] = None,
+                        plan: Optional[WgPlan] = None) -> PackedInt8:
+    """(Cout, 9*Cin) int8 in (ky, kx, ci) order -> :class:`PackedInt8`: for
+    the wgmma path wherever it takes the shape (``plan``: another of its
+    plans), else for the mma.sync path; ``wgmma`` forces one.  Do it once
+    per weight set."""
+    cout, cin = wq.shape[0], wq.shape[1] // 9
+    if plan is None and wgmma is not False:
+        plan = wgmma_plan(cin, cout)
+        if plan is None and wgmma:
+            raise ValueError(f"int8_conv3x3: the wgmma path does not take "
+                             f"{cin}->{cout}")
+    if wgmma is False or plan is None:
+        return PackedInt8(_prepack_mma(wq))
+    return PackedInt8(_prepack_wgmma(wq, plan), plan)
+
+
+def unpack_int8_prepacked(packed: PackedInt8, m: int,
                           cin: int) -> torch.Tensor:
-    """Inverse of :func:`prepack_int8_weight`."""
+    """Inverse of :func:`prepack_int8_weight`: the canonical weights."""
+    w, plan = packed
+    if plan is not None:
+        rows = plan.nbp * plan.bn
+        passes = m // rows
+        if cin == 1:
+            w4 = w.reshape(passes, 2, rows, 16).permute(0, 2, 1, 3)
+            return w4.reshape(m, 32)[:, :9].contiguous()
+        ng = _round_up(cin // 16, 2)
+        w7 = w.reshape(passes, ng // 2, 9 // plan.tps, plan.tps, 2, rows, 16)
+        w3 = w7.permute(0, 5, 2, 3, 1, 4, 6).reshape(m, 9, ng * 16)
+        return w3[:, :, :cin].reshape(m, 9 * cin).contiguous()
     taps, k = (1, 9) if cin == 1 else (9, cin)
     mpad, kpad = _round_up(m, _MC), _round_up(k, _KC)
-    w5 = packed.reshape(mpad // _MC, kpad // _KC, taps, _MC, _KC)
+    w5 = w.reshape(mpad // _MC, kpad // _KC, taps, _MC, _KC)
     w3 = w5.permute(0, 3, 2, 1, 4).reshape(mpad, taps, kpad)
     return w3[:m, :, :k].reshape(m, 9 * cin).contiguous()
 
+
+def prepack_int8_weight_numel(wq: torch.Tensor,
+                              plan: Optional[WgPlan] = None) -> int:
+    """Elements of the prepacked ``wq`` for ``plan`` (None: the mma.sync
+    path)."""
+    m, cin = wq.shape[0], wq.shape[1] // 9
+    if plan is not None:
+        return m * (32 if cin == 1 else 9 * _round_up(cin // 16, 2) * 16)
+    k = 9 if cin == 1 else cin
+    return _round_up(m, _MC) * (1 if cin == 1 else 9) * _round_up(k, _KC)
+
+
+# ------------------------------------------------------------- the wrapper
 
 def _lib():
     lib = _build.load("int8_conv3x3")
     fn = lib.int8_conv3x3_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda(x, wq, w_scale, s_x, scale, bias):
+def _check_cuda(x, wq, w_scale, s_x, scale, bias, s_out):
     N, cin, H, W = x.shape
     cout = wq.shape[0]
-    want = {"x": (x, torch.bfloat16, (N, cin, H, W)),
-            "wq": (wq, torch.int8, (cout, 9 * cin)),
-            "w_scale": (w_scale, torch.float32, (cout,)),
-            "s_x": (s_x, torch.float32, None),
-            "scale": (scale, torch.float32, (cout,)),
-            "bias": (bias, torch.float32, (cout,))}
-    for name, (t, dtype, shape) in want.items():
+    want = {"x": (x, (torch.bfloat16, torch.int8), (N, cin, H, W)),
+            "wq": (wq, (torch.int8,), (cout, 9 * cin)),
+            "w_scale": (w_scale, (torch.float32,), (cout,)),
+            "s_x": (s_x, (torch.float32,), None),
+            "scale": (scale, (torch.float32,), (cout,)),
+            "bias": (bias, (torch.float32,), (cout,))}
+    if s_out is not None:
+        want["s_out"] = (s_out, (torch.float32,), None)
+    for name, (t, dtypes, shape) in want.items():
         if t.device != x.device:
             raise ValueError(f"int8_conv3x3: {name} on {t.device}, x on "
                              f"{x.device}")
-        if t.dtype != dtype:
+        if t.dtype not in dtypes:
             raise TypeError(f"int8_conv3x3: {name} is {t.dtype}, the kernel "
-                            f"takes {dtype}")
+                            f"takes {' or '.join(map(str, dtypes))}")
         if shape is None and t.numel() != 1:
-            raise ValueError("int8_conv3x3: s_x must hold one value")
+            raise ValueError(f"int8_conv3x3: {name} must hold one value")
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"int8_conv3x3: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
@@ -143,51 +337,82 @@ def _check_cuda(x, wq, w_scale, s_x, scale, bias):
             f"{tuple(x.shape)}")
     if x.data_ptr() % 16:
         raise ValueError("int8_conv3x3: x is not aligned to 16 bytes")
-    if N * -(-cout // _MC) > 65535:
-        raise ValueError(f"int8_conv3x3: {N} frames x {cout} channels is "
-                         "more than one launch takes")
+
+
+def _check_packed(packed, wq):
+    cout, cin = wq.shape[0], wq.shape[1] // 9
+    if not isinstance(packed, PackedInt8):
+        raise ValueError("int8_conv3x3: packed must come from "
+                         "prepack_int8_weight")
+    plan = packed.plan
+    if plan is not None and (make_plan(cin, cout, *plan[:4]) is None
+                             or not (2 if cin == 1 else 3)
+                             <= plan.stages <= WG_MAX_STAGES
+                             or wgmma_smem_bytes(cin, plan) > SMEM_LIMIT):
+        raise ValueError(f"int8_conv3x3: the wgmma plan {plan} does not fit "
+                         f"{cin}->{cout}")
+    w = packed.w
+    if (w.device != wq.device or w.dtype != torch.int8 or w.dim() != 1
+            or not w.is_contiguous()
+            or w.numel() != prepack_int8_weight_numel(wq, plan)):
+        raise ValueError("int8_conv3x3: the prepacked weights do not match "
+                         "wq")
 
 
 def int8_conv3x3(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                  s_x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                 packed: Optional[torch.Tensor] = None,
-                 raw: bool = False) -> torch.Tensor:
+                 packed: Optional[PackedInt8] = None, raw: bool = False,
+                 s_out: Optional[torch.Tensor] = None,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``relu(scale * dq(conv3x3(quantize_act(x, s_x), wq)) + bias)`` with
     ``dq(acc) = acc * (s_x * w_scale)``; zero pad 1, no bias.
 
-    x (N, Cin, H, W); wq (Cout, 9*Cin) int8 in (ky, kx, ci) order; w_scale,
-    scale, bias f32 per output channel; s_x one f32 on x's device.  On CUDA
-    the kernel takes a bf16 x in ``torch.channels_last`` memory format and
-    returns bf16 in the same format (``raw``: the int32 accumulators, in
-    the same format); it converts nothing.  ``packed`` is
-    :func:`prepack_int8_weight` of ``wq`` (prepacked on the fly without
-    it).  CPU tensors go to the plain version.
+    x (N, Cin, H, W), float, or int8 already quantized with ``s_x``; wq
+    (Cout, 9*Cin) int8 in (ky, kx, ci) order; w_scale, scale, bias f32 per
+    output channel; s_x one f32 on x's device.  ``raw`` returns the int32
+    accumulators; ``s_out`` (one f32) the result quantized with it, int8;
+    ``dtype`` is the compute dtype of the result (default: x's, bf16 for an
+    int8 x).  On CUDA the kernel takes a bf16 or int8 x in
+    ``torch.channels_last`` memory format, computes in bf16 and returns in
+    the same format; it converts nothing.  ``packed`` is
+    :func:`prepack_int8_weight` of ``wq`` (prepacked on the fly without it;
+    its plan decides the path).  CPU tensors go to the plain version.
     """
+    if raw and s_out is not None:
+        raise ValueError("int8_conv3x3: raw and s_out exclude each other")
     if x.device.type == "cpu":
-        return int8_conv3x3_reference(x, wq, w_scale, s_x, scale, bias, raw)
+        return int8_conv3x3_reference(x, wq, w_scale, s_x, scale, bias, raw,
+                                      s_out, dtype)
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv3x3: unsupported device {x.device}")
-    _check_cuda(x, wq, w_scale, s_x, scale, bias)
+    if dtype not in (None, torch.bfloat16):
+        raise TypeError(f"int8_conv3x3: the kernel computes in bf16, not "
+                        f"{dtype}")
+    _check_cuda(x, wq, w_scale, s_x, scale, bias, s_out)
     if packed is None:
         packed = prepack_int8_weight(wq)
-    elif (packed.device != wq.device or packed.dtype != torch.int8
-          or packed.numel() != prepack_int8_weight_numel(wq)):
-        raise ValueError("int8_conv3x3: the prepacked weights do not match "
-                         "wq")
+    else:
+        _check_packed(packed, wq)
     N, cin, H, W = x.shape
     cout = wq.shape[0]
-    out = torch.empty((N, cout, H, W), device=x.device,
-                      dtype=torch.int32 if raw else torch.bfloat16,
+    if packed.plan is None and N * -(-cout // _MC) > 65535:
+        raise ValueError(f"int8_conv3x3: {N} frames x {cout} channels is "
+                         "more than one launch of the mma.sync path takes")
+    out_dtype = (torch.int32 if raw else torch.int8 if s_out is not None
+                 else torch.bfloat16)
+    out = torch.empty((N, cout, H, W), device=x.device, dtype=out_dtype,
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
+    plan = packed.plan or WgPlan(0, 0, 0, 0, 0)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.int8_conv3x3_launch(
-            x.data_ptr(), packed.data_ptr(), s_x.data_ptr(),
+            x.data_ptr(), packed.w.data_ptr(), s_x.data_ptr(),
             w_scale.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            None if s_out is None else s_out.data_ptr(),
             None if raw else out.data_ptr(), out.data_ptr() if raw else None,
-            N, cin, cout, H, W,
+            N, cin, cout, H, W, int(x.dtype == torch.int8), *plan,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "int8_conv3x3 launch")
     int8_conv3x3.launches += 1
@@ -195,10 +420,3 @@ def int8_conv3x3(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
 
 
 int8_conv3x3.launches = 0
-
-
-def prepack_int8_weight_numel(wq: torch.Tensor) -> int:
-    """Elements of :func:`prepack_int8_weight` of ``wq``."""
-    m, cin = wq.shape[0], wq.shape[1] // 9
-    k = 9 if cin == 1 else cin
-    return _round_up(m, _MC) * (1 if cin == 1 else 9) * _round_up(k, _KC)

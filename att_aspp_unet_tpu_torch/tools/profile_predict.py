@@ -4,7 +4,7 @@
     python -m att_aspp_unet_tpu_torch.tools.profile_predict [--frames 140]
         [--top 10] [--weights resources/synthetic/weights.npz]
         [--cascade [--scout_weights resources/.../weights.npz] | --roi
-         | --baseline]
+         | --baseline] [--int8]
 
 Builds the synthetic sweep (``tools/synthetic.make_sweep``, seed 0, 562x744),
 runs one case to warm up, profiles the next one and prints the device
@@ -14,7 +14,9 @@ two-tier cascade, by default with the distilled 128-px scout; ``--roi``
 profiles the container's ROI path (``predict_roi`` and its postprocess)
 instead of ``predict_case``; ``--baseline`` the container's default model
 (``BaselineEngine.predict``, its postprocess and the frame ladder) with the
-initialisation of seed 0, the command line's without ``--weights``.  Needs one CUDA device.
+initialisation of seed 0, the command line's without ``--weights``.
+``--int8`` serves the 3x3 convs on the int8 path (kernel K3), calibrated on
+the sweep before the warm-up.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cascade", action="store_true")
     ap.add_argument("--roi", action="store_true")
     ap.add_argument("--baseline", action="store_true")
+    ap.add_argument("--int8", action="store_true")
     ap.add_argument("--scout_weights", default=str(
         REPO / "resources/synthetic_scout_noclahe128/weights.npz"))
     args = ap.parse_args(argv)
@@ -54,7 +57,9 @@ def main(argv=None) -> int:
         return 2
     thr = float(json.loads((REPO / "resources/synthetic/thr.json")
                            .read_text())["best_thr"])
-    cfg = Config(model=ModelConfig(base_c=48),
+    cfg = Config(model=ModelConfig(
+                     base_c=48,
+                     conv_lowering="int8" if args.int8 else "direct"),
                  predict=PredictConfig(
                      tta_hflip=True, cascade=args.cascade,
                      cascade_scout_weights=(args.scout_weights
@@ -79,7 +84,7 @@ def main(argv=None) -> int:
             return engine.postprocess_roi(engine.predict_roi(frames)).cpu()
         return engine.predict_case(frames, (0.28, 0.28), thr)
 
-    case(sweep[:16])
+    case(sweep if args.int8 else sweep[:16])    # int8: calibrates on it
     case(sweep)
     torch.cuda.synchronize()
 
@@ -107,6 +112,8 @@ def main(argv=None) -> int:
     what = ("BaselineEngine predict + postprocess" if args.baseline else
             "predict_roi + postprocess_roi" if args.roi else
             "predict_case (cascade)" if args.cascade else "predict_case")
+    if args.int8:
+        what += ", --int8"
     print(f"{what}, "
           f"{args.frames} frames, warm, profiler on: "
           f"{wall:.3f} s wall, device busy {busy:.3f} s "

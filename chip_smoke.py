@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --save-int8-scales out/int8_scales.npz
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. build the hand-written kernels from ``att_aspp_unet_tpu_torch/csrc``
@@ -30,9 +32,16 @@ Phases (any failure exits non-zero and prints no result line):
    shapes, their output equal to the served launch's, and timed; K3 at the
    sixteen conv shapes of the direct path's 32-frame micro-batch, a
    cascade's 16-frame tier-2 micro-batch and the ROI path's 16 crops (and
-   the ``--no_aspp`` bridge conv), int32 accumulators exact and bf16 outputs
-   within one ulp of the plain version, timed beside im2col +
-   ``torch._int_mm`` (cuBLASLt's int8 GEMM) as ``library_ms``;
+   the ``--no_aspp`` bridge conv), each pair as the int8 model serves it
+   (the first conv's result quantized to int8 with the second conv's scale,
+   the second conv reading that int8 tensor): int32 accumulators exact from
+   a bf16 and from an int8 input on both paths, bf16 outputs within one ulp
+   of the plain version, the int8 intermediate bit-equal to ``quantize_act``
+   of the plain bf16 result; each conv's line names its path (the wgmma
+   plan, or mma.sync) and its bound, the set's line the bound of both forms
+   (int8 intermediate, and bf16 in and out per conv); timed beside the bf16
+   form, the mma.sync path and im2col + ``torch._int_mm`` (cuBLASLt's int8
+   GEMM) as ``library_ms``;
 3. direct path: the port's ``predict`` CLI on a synthetic 140-frame ``.mha``
    sweep with the repo's trained weights (base_c 48, hflip TTA), the kernel
    launch counters zeroed just before and read just after; output checks; 6
@@ -127,6 +136,8 @@ Phases (any failure exits non-zero and prints no result line):
    frames/s, AC, Dice), two frames card against the CPU's plain versions
    (same frame, Dice >= 0.98), the launches each path implies (K3 two per
    pair and micro-batch, no K1 on a served int8 forward);
+   ``--save-int8-scales NPZ`` also saves the container's calibration of the
+   840-frame case there (``tests/compare_int8_roi_frame.py`` reads it);
 16c. warm (last): ``cli warm --int8`` in a subprocess on a copy of the
    package with an empty build directory (builds K1, K2, K3 and the host
    ops), then a ``predict --int8`` subprocess that builds nothing;
@@ -416,11 +427,37 @@ def int8_library(xq, wq):
     return torch._int_mm(cols, wq.t()).reshape(N, H, W, -1)
 
 
+def k3_bound(N, cin, cout, hw, in_bytes, out_bytes):
+    """(ms, bound_by, operations, bytes) of one conv: each input element
+    read once (``in_bytes`` each), each output written once, the int8
+    weights and f32 per-channel parameters, against the int8 rate."""
+    ops = 2.0 * N * hw * hw * 9 * cin * cout
+    nbytes = (in_bytes * N * cin * hw * hw + out_bytes * N * cout * hw * hw
+              + 9 * cin * cout + 4 * (3 * cout + 1))
+    return bound(ops, nbytes, PEAK_INT8_OPS) + (ops, nbytes)
+
+
+def k3_path(packed) -> str:
+    plan = packed.plan
+    return ("mma.sync" if plan is None else
+            "wgmma N{} x{} {} {}-tap stages, {} ring".format(
+                plan.bn, plan.mw,
+                "pixels" if plan.nbp == 1 else "channels", plan.tps,
+                plan.stages))
+
+
 def phase_k3_set(dev, label):
-    """K3 at the sixteen conv shapes of one shape set (the main set also
-    the ``--no_aspp`` bridge conv, on its own): the int32 accumulators
-    exact and the bf16 outputs within one ulp of the plain version; kernel,
-    plain and library times.  Returns the sums over the sixteen."""
+    """K3 at the sixteen conv shapes of one shape set, each pair as the int8
+    model serves it (the served form: the first conv reads bf16 and writes
+    its result quantized with the second conv's scale, int8; the second
+    reads that int8 tensor and writes bf16), the second conv fed the first
+    one's kernel output; the main set also the ``--no_aspp`` bridge conv
+    (bf16 in and out).  Held to the plain version: int32 accumulators exact
+    from either input, bf16 outputs within one ulp, the int8 intermediate
+    bit-equal to ``quantize_act`` of the plain bf16 result.  Timed: the
+    served form (the path the wrapper picks), the bf16-in, bf16-out form on
+    that path and on the mma.sync path, the plain version, im2col +
+    ``torch._int_mm``.  Returns the sums over the sixteen."""
     import torch
 
     from att_aspp_unet_tpu_torch.ops.kernels import int8_conv as ic
@@ -430,82 +467,134 @@ def phase_k3_set(dev, label):
     if label == "main":
         convs.append(("bridge", 8 * base_c, 16 * base_c, size // 16))
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    tot = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, bound_ms=0.0, ops=0.0,
-               bytes=0.0, max_abs_err=0.0)
-    no_lib = []
+    keys = ("ms", "bf16_ms", "mma_ms", "plain_ms", "lib_ms", "bound_ms",
+            "ops", "bytes", "bf16_bound_ms", "bf16_bytes")
+    tot = dict.fromkeys(keys, 0.0)
+    tot["max_abs_err"] = 0.0
+    no_lib, paths = [], set()
+    q_prev = None        # the pair's int8 intermediate, from the kernel
     for name, cin, cout, hw in convs:
-        x = (torch.randn(N, cin, hw, hw, generator=g, device=dev) * 2).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        first, second = name.endswith(".0"), name.endswith(".1")
         wq = torch.randint(-127, 128, (cout, 9 * cin), generator=g,
                            device=dev, dtype=torch.int8)
         ws = torch.rand(cout, generator=g, device=dev) * 1e-3 + 1e-4
-        s_x = torch.full((), 5.0 / 127, device=dev)
         sc = torch.rand(cout, generator=g, device=dev) + 0.5
         bi = torch.randn(cout, generator=g, device=dev) * 0.1
-        args = (x, wq, ws, s_x, sc, bi)
+        if second:
+            # the first conv's kernel output and its scale; x_bf dequantized
+            # from it quantizes back to it exactly (the bf16-form input)
+            xq, s_x = q_prev
+            x = (xq.float() * s_x).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            if not torch.equal(ic.quantize_act(x, s_x), xq):
+                raise AssertionError(f"K3 {label} {name}: the dequantized "
+                                     "intermediate does not quantize back")
+        else:
+            x = (torch.randn(N, cin, hw, hw, generator=g, device=dev) * 2).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            s_x = torch.full((), 5.0 / 127, device=dev)
+            xq = ic.quantize_act(x, s_x).contiguous(
+                memory_format=torch.channels_last)
+        rest = (wq, ws, s_x, sc, bi)
         packed = ic.prepack_int8_weight(wq)
-        acc = ic.int8_conv3x3(*args, packed=packed, raw=True)
-        got = ic.int8_conv3x3(*args, packed=packed)
-        torch.cuda.synchronize()
-        acc_ok = torch.equal(acc, ic.int8_conv3x3_reference(*args, raw=True))
-        want = ic.int8_conv3x3_reference(*args)
+        mma = ic.prepack_int8_weight(wq, wgmma=False)
+        paths.add(packed.plan is not None)
+        # the plain version: the exact integer conv once, then its epilogue
+        acc_want = ic.int_conv3x3(xq, wq)
+        want = ic.int8_epilogue(acc_want, ws, s_x, sc, bi, torch.bfloat16)
+        s_out = ((want.float().amax().clamp_min(1e-6) / 127).reshape(())
+                 if first else None)
+        served_x = xq if second else x
+        ok = [torch.equal(ic.int8_conv3x3(xi, *rest, packed=pk, raw=True),
+                          acc_want)
+              for xi in (x, xq) for pk in (packed, mma)]
+        got = ic.int8_conv3x3(x, *rest, packed=packed)
         ulps = bf16_ulps(got, want)
         err = float((got.float() - want.float()).abs().max())
+        served = ic.int8_conv3x3(served_x, *rest, packed=packed, s_out=s_out)
+        torch.cuda.synchronize()
+        if first:
+            q_ok = torch.equal(served, ic.quantize_act(want, s_out))
+            q_prev = (served, s_out)
+        else:
+            q_ok = True
+            ulps = max(ulps, bf16_ulps(served, want))
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        del want
-        if not acc_ok or ulps > 1:
-            raise AssertionError(f"K3 {label} {name}: accumulators exact "
-                                 f"{acc_ok}, outputs {ulps} bf16 ulp apart")
-        ms = cuda_ms(lambda: ic.int8_conv3x3(*args, packed=packed),
-                     5 if N * hw * hw >= 2 ** 21 else 25)
-        plain_ms = cuda_ms(lambda: ic.int8_conv3x3_reference(*args), 1)
-        xq = ic.quantize_act(x, s_x).permute(0, 2, 3, 1).contiguous()
+        if not all(ok) or ulps > 1 or not q_ok:
+            raise AssertionError(
+                f"K3 {label} {name}: accumulators exact {ok} (bf16 and int8 "
+                f"input, chosen path and mma.sync), outputs {ulps} bf16 ulp "
+                f"apart, int8 intermediate bit-equal {q_ok}")
+        reps = 5 if N * hw * hw >= 2 ** 21 else 25
+        ms = cuda_ms(lambda: ic.int8_conv3x3(served_x, *rest, packed=packed,
+                                             s_out=s_out), reps)
+        bf16_ms = cuda_ms(lambda: ic.int8_conv3x3(x, *rest, packed=packed),
+                          reps)
+        mma_ms = cuda_ms(lambda: ic.int8_conv3x3(x, *rest, packed=mma), reps)
+        plain_ms = cuda_ms(lambda: ic.int8_conv3x3_reference(
+            served_x, *rest, s_out=s_out), 1)
+        xq_nhwc = xq.permute(0, 2, 3, 1).contiguous()
         try:
-            lib_out = int8_library(xq, wq)
-            lib_ok = torch.equal(lib_out, acc.permute(0, 2, 3, 1))
+            lib_out = int8_library(xq_nhwc, wq)
+            lib_ok = torch.equal(lib_out, acc_want.permute(0, 2, 3, 1))
             del lib_out
-            lib_ms = cuda_ms(lambda: int8_library(xq, wq), 3)
+            lib_ms = cuda_ms(lambda: int8_library(xq_nhwc, wq), 3)
         except (RuntimeError, torch.cuda.OutOfMemoryError) as exc:
             lib_ok, lib_ms = None, None
             no_lib.append(f"{name}: {str(exc).splitlines()[0][:80]}")
-        ops = 2.0 * N * hw * hw * 9 * cin * cout
-        nbytes = 2 * x.numel() + wq.numel() + 2 * N * cout * hw * hw \
-            + 4 * (3 * cout + 1)
-        b_ms, bound_by = bound(ops, nbytes, PEAK_INT8_OPS)
-        log(f"[K3 {label}] {name} N={N} {cin}->{cout} @{hw}^2: kernel "
-            f"{ms:.3f} ms ({ops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.3f} "
-            f"ms, im2col + torch._int_mm "
+        b_ms, bound_by, ops, nbytes = k3_bound(
+            N, cin, cout, hw, 1 if second else 2, 1 if first else 2)
+        bb_ms, _, _, bf_bytes = k3_bound(N, cin, cout, hw, 2, 2)
+        log(f"[K3 {label}] {name} N={N} {cin}->{cout} @{hw}^2 "
+            f"{'int8' if second else 'bf16'} in, {'int8' if first else 'bf16'}"
+            f" out, {k3_path(packed)}: kernel {ms:.3f} ms "
+            f"({ops / ms / 1e9:.1f} TOP/s), bound {b_ms:.3f} ms ({bound_by}); "
+            f"bf16 in and out {bf16_ms:.3f} ms (bound {bb_ms:.3f} ms), "
+            f"mma.sync path {mma_ms:.3f} ms; plain {plain_ms:.3f} ms; im2col "
+            f"+ torch._int_mm "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'} (its int32 "
-            f"equal to K3's: {lib_ok}), bound {b_ms:.3f} ms ({bound_by}); "
-            f"accumulators exact, outputs within {ulps} bf16 ulp, max|err| "
-            f"{err:.4g}")
+            f"equal: {lib_ok}); accumulators exact, outputs within {ulps} "
+            f"bf16 ulp, max|err| {err:.4g}"
+            + (", int8 intermediate bit-equal" if first else ""))
         if lib_ok is False:
             raise AssertionError(f"K3 {label} {name}: the library yardstick "
                                  "computes another conv")
         if name == "bridge":
             tot.update(bridge_ms=ms, bridge_plain_ms=plain_ms,
                        bridge_library_ms=lib_ms, bridge_bound_ms=b_ms,
-                       bridge_bound_by=bound_by)
+                       bridge_bound_by=bound_by, bridge_mma_ms=mma_ms,
+                       bridge_path=k3_path(packed))
         else:
-            for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                         ("lib_ms", lib_ms), ("bound_ms", b_ms), ("ops", ops),
-                         ("bytes", nbytes)):
+            for k, v in (("ms", ms), ("bf16_ms", bf16_ms), ("mma_ms", mma_ms),
+                         ("plain_ms", plain_ms), ("lib_ms", lib_ms),
+                         ("bound_ms", b_ms), ("ops", ops), ("bytes", nbytes),
+                         ("bf16_bound_ms", bb_ms), ("bf16_bytes", bf_bytes)):
                 tot[k] = None if v is None or tot[k] is None else tot[k] + v
-        del x, wq, acc, got, xq, args, packed
+        del x, xq, wq, acc_want, want, got, served, packed, mma
+        if not first:
+            q_prev = None
         torch.cuda.empty_cache()
     _, tot["bound_by"] = bound(tot["ops"], tot["bytes"], PEAK_INT8_OPS)
-    log(f"[K3 {label}] the sixteen convs (one {N}-frame launch each): kernel "
-        f"{tot['ms']:.3f} ms = {tot['ops'] / tot['ms'] / 1e9:.1f} TOP/s, "
-        f"plain {tot['plain_ms']:.3f} ms, im2col + torch._int_mm "
+    log(f"[K3 {label}] the sixteen convs (one {N}-frame launch each, served "
+        f"form): kernel {tot['ms']:.3f} ms = "
+        f"{tot['ops'] / tot['ms'] / 1e9:.1f} TOP/s, bound "
+        f"{tot['bound_ms']:.3f} ms (int8 intermediate, {tot['bound_by']}); "
+        f"bf16 in and out {tot['bf16_ms']:.3f} ms (bound "
+        f"{tot['bf16_bound_ms']:.3f} ms, per-conv bf16 form); mma.sync path "
+        f"{tot['mma_ms']:.3f} ms; plain {tot['plain_ms']:.3f} ms, im2col + "
+        f"torch._int_mm "
         f"{tot['lib_ms'] if tot['lib_ms'] is None else round(tot['lib_ms'], 3)}"
-        f" ms, bound {tot['bound_ms']:.3f} ms ({tot['bound_by']})"
+        f" ms; paths: {'wgmma' if True in paths else ''}"
+        f"{' and ' if len(paths) == 2 else ''}"
+        f"{'mma.sync' if False in paths else ''}"
         + (f"; no library time for {no_lib}" if no_lib else ""))
     return tot
 
 
 def phase_k3(dev):
     """K3 at every shape set; returns its JSON entry (the main set under the
-    contract's keys, per 32-frame micro-batch over the sixteen convs)."""
+    contract's keys, per 32-frame micro-batch over the sixteen convs in the
+    served form)."""
     sets = {label: phase_k3_set(dev, label) for label in K3_SHAPE_SETS}
     main = sets["main"]
     entry = {"name": "int8_conv3x3", "route": "cuda",
@@ -514,16 +603,20 @@ def phase_k3(dev):
              "max_abs_err": max(t["max_abs_err"] for t in sets.values()),
              "ms": main["ms"], "plain_ms": main["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-             "library_ms": main["lib_ms"]}
+             "library_ms": main["lib_ms"], "bf16_form_ms": main["bf16_ms"],
+             "bf16_form_bound_ms": main["bf16_bound_ms"],
+             "mma_sync_ms": main["mma_ms"]}
     for k in ("bridge_ms", "bridge_plain_ms", "bridge_library_ms",
-              "bridge_bound_ms", "bridge_bound_by"):
+              "bridge_bound_ms", "bridge_bound_by", "bridge_mma_ms"):
         entry[k] = main[k]
     for label in ("tier2", "roi"):
         t = sets[label]
         entry.update({f"{label}_ms": t["ms"], f"{label}_plain_ms": t["plain_ms"],
                       f"{label}_bound_ms": t["bound_ms"],
                       f"{label}_bound_by": t["bound_by"],
-                      f"{label}_library_ms": t["lib_ms"]})
+                      f"{label}_library_ms": t["lib_ms"],
+                      f"{label}_bf16_form_ms": t["bf16_ms"],
+                      f"{label}_mma_sync_ms": t["mma_ms"]})
     return entry
 
 
@@ -1120,7 +1213,7 @@ def scout_launches(n_stack: int) -> int:
     return forward_launches(n_stack, scout_micro_batch(n_stack, 128, 16))
 
 
-def phase_int8(dev, sweeps, bests, variables, thr, tmp):
+def phase_int8(dev, sweeps, bests, variables, thr, tmp, save_scales=None):
     """The ``--int8`` serving path with the repo's trained weights: the
     engine calibrates on the 140-frame sweep (K1's calibration launches,
     once), then serves the sweep and the 840-frame case directly, a cascade
@@ -1306,6 +1399,21 @@ def phase_int8(dev, sweeps, bests, variables, thr, tmp):
         raise AssertionError(f"int8 container: rc {rc}, frame {f8} against "
                              f"the bf16 container's {fb} (a tie: {tie}), "
                              f"mean |diff| {mean_diff}")
+    if save_scales:
+        # the container's own calibration (its configuration, on this case),
+        # for the JAX package's int8 engine (tests/compare_int8_roi_frame.py)
+        from att_aspp_unet_tpu_torch.config import Config, ModelConfig
+        from att_aspp_unet_tpu_torch.utils.npz_weights import \
+            save_npz_variables
+
+        e = AttAsppEngine(Config(model=ModelConfig(
+            base_c=BASE_C, conv_lowering="int8")), variables, device=dev)
+        e.predict_roi(case)
+        Path(save_scales).parent.mkdir(parents=True, exist_ok=True)
+        save_npz_variables(e.quant_variables(), save_scales)
+        log(f"[int8] the container's calibration on the {case.shape[0]}-frame "
+            f"case saved to {save_scales}")
+        del e
     return totals
 
 
@@ -3335,7 +3443,14 @@ def make_seeded_sweep(seed: int):
     return make_sweep(N_FRAMES, *FRAME_HW, seed=seed)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--save-int8-scales", default=None, metavar="NPZ",
+                    help="also save the int8 container's calibrated "
+                         "variables (with their quant collection) there")
+    args = ap.parse_args(argv)
     if not (REPO / "att_aspp_unet_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
               file=sys.stderr)
@@ -3413,7 +3528,8 @@ def main() -> int:
         abdomen_case = [k * N_FRAMES + i for k, b in enumerate(bests)
                         for i in abdomen_frames(N_FRAMES, b)]
         add(phase_container(dev, case, abdomen_case, variables, tmp))
-        add(phase_int8(dev, sweeps, bests, variables, thr, tmp))
+        add(phase_int8(dev, sweeps, bests, variables, thr, tmp,
+                       args.save_int8_scales))
         torch.cuda.empty_cache()
         add(phase_baseline(dev, sweeps[0], case, tmp))
         torch.cuda.empty_cache()

@@ -504,11 +504,106 @@ def test_int8_conv3x3_kernel_edge_shapes(rng, cuda_device, N, cin, cout, H, W):
 def test_int8_conv3x3_prepacked_and_rejects(rng, cuda_device):
     args = _int8_args(rng, cuda_device, 2, 48, 96, 32, 32)
     packed = tic.prepack_int8_weight(args[1])
+    assert packed.plan is not None
     assert torch.equal(tic.int8_conv3x3(*args, packed=packed),
                        tic.int8_conv3x3(*args))
     with pytest.raises(ValueError):
-        tic.int8_conv3x3(*args, packed=packed[:-16])
+        tic.int8_conv3x3(*args, packed=packed._replace(w=packed.w[:-16]))
+    with pytest.raises(ValueError):
+        tic.int8_conv3x3(*args, packed=packed.w)
     with pytest.raises(ValueError, match="channels_last"):
         tic.int8_conv3x3(args[0].contiguous(), *args[1:])
     with pytest.raises(TypeError):
         tic.int8_conv3x3(args[0].float(), *args[1:])
+    with pytest.raises(ValueError):
+        tic.int8_conv3x3(*args, raw=True, s_out=args[3])
+    with pytest.raises(ValueError):       # 8 output channels: no wgmma plan
+        tic.prepack_int8_weight(args[1][:8], wgmma=True)
+
+
+# Shapes both of K3's paths take: every main-path and ROI conv shape the
+# wgmma path takes (at 2 frames), and frames that are no multiple of its
+# tile (rows and columns ragged; narrower than 64: the flat M chunks).
+INT8_BOTH = sorted({(N, cin, cout, hw, hw) for N, cin, cout, hw in INT8_CONVS
+                    if tic.wgmma_takes(cin, cout)}
+                   | {(1, 48, 96, 37, 50), (2, 1, 48, 19, 70),
+                      (1, 384, 768, 9, 13), (3, 96, 48, 5, 130),
+                      (1, 768, 384, 11, 66), (2, 192, 192, 2, 3)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wgmma", [True, False], ids=["wgmma", "mma_sync"])
+@pytest.mark.parametrize("N,cin,cout,H,W", INT8_BOTH)
+def test_int8_conv3x3_each_path_matches_plain(rng, cuda_device, N, cin, cout,
+                                              H, W, wgmma):
+    """Each path forced on the shapes both take: accumulators exact, bf16
+    outputs within one ulp of the plain version."""
+    args = _int8_args(rng, cuda_device, N, cin, cout, H, W)
+    packed = tic.prepack_int8_weight(args[1], wgmma=wgmma)
+    assert (packed.plan is not None) == wgmma
+    acc = tic.int8_conv3x3(*args, packed=packed, raw=True)
+    got = tic.int8_conv3x3(*args, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, tic.int8_conv3x3_reference(*args, raw=True))
+    assert bf16_ulps(got, tic.int8_conv3x3_reference(*args)) <= 1
+
+
+# The int8 intermediate's modes, on the path the wrapper picks and on the
+# mma.sync path: the two convs of a main-path pair at 2 frames and ragged
+# shapes of both paths.
+INT8_MODES = [(2, 1, 48, 64, 64), (2, 48, 48, 64, 64), (2, 96, 192, 32, 32),
+              (2, 768, 384, 16, 16), (1, 48, 96, 37, 50), (3, 5, 7, 9, 7),
+              (2, 24, 40, 33, 47)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wgmma", [None, False], ids=["chosen", "mma_sync"])
+@pytest.mark.parametrize("N,cin,cout,H,W", INT8_MODES)
+def test_int8_conv3x3_int8_output_and_input_modes(rng, cuda_device, N, cin,
+                                                  cout, H, W, wgmma):
+    """The output quantized with ``s_out`` is bit-equal to ``quantize_act``
+    of the plain bf16 result; an int8 input (the quantized x) gives the
+    accumulators exactly and the bf16 outputs within one ulp."""
+    args = _int8_args(rng, cuda_device, N, cin, cout, H, W)
+    packed = tic.prepack_int8_weight(args[1], wgmma=wgmma)
+    plain = tic.int8_conv3x3_reference(*args)
+    s_out = (plain.float().amax() / 127).reshape(())
+    q = tic.int8_conv3x3(*args, packed=packed, s_out=s_out)
+    xq = tic.quantize_act(args[0], args[3]).contiguous(
+        memory_format=torch.channels_last)
+    acc = tic.int8_conv3x3(xq, *args[1:], packed=packed, raw=True)
+    got = tic.int8_conv3x3(xq, *args[1:], packed=packed)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8
+    assert q.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(q, tic.quantize_act(plain, s_out))
+    assert torch.equal(acc, tic.int8_conv3x3_reference(*args, raw=True))
+    assert bf16_ulps(got, plain) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cmid,cout,hw", [(1, 48, 48, 64), (96, 48, 48, 40),
+                                              (384, 192, 192, 16)])
+def test_int8_pair_on_the_card_matches_plain(rng, cuda_device, cin, cmid,
+                                             cout, hw):
+    """Int8CBRPair: two launches with the int8 intermediate, against the
+    same module's plain forward on the CPU (bf16 within one ulp)."""
+    from att_aspp_unet_tpu_torch.nn.blocks import Int8CBRPair
+
+    pair = Int8CBRPair(cin, cmid, cout)
+    a1 = _int8_args(rng, "cpu", 2, cin, cmid, hw, hw)
+    a2 = _int8_args(rng, "cpu", 2, cmid, cout, hw, hw)
+    with torch.no_grad():
+        for i, a in ((1, a1), (2, a2)):
+            for name, t in (("w", a[1]), ("w_scale", a[2]), ("s", a[4]),
+                            ("b", a[5])):
+                getattr(pair, f"{name}{i}").copy_(t)
+        pair.s_x1.fill_(5.0 / 127)
+        h = tic.int8_conv3x3(*a1)            # the intermediate, plain
+        pair.s_x2.fill_(float(h.float().amax()) / 100)   # some values clip
+    want = pair(a1[0])
+    before = tic.int8_conv3x3.launches
+    got = pair.to(cuda_device)(a1[0].to(cuda_device))
+    torch.cuda.synchronize()
+    assert tic.int8_conv3x3.launches == before + 2
+    assert bf16_ulps(got.cpu(), want) <= 1

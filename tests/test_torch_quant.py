@@ -187,13 +187,126 @@ def test_plain_int8_conv_equals_jax_int8_conv3x3_pre():
 
 
 def test_int8_kernel_weights_prepack_round_trip():
+    """Both paths' weight orders round-trip; the wgmma path takes the
+    model's shapes, the mma.sync path the rest; its stages hold the
+    K-major core matrices (8 output channels x 16 input channels) of one
+    k32 step's taps in the kernel's step order."""
     rng = np.random.default_rng(4)
-    for cin, cout in ((1, 48), (48, 96), (5, 7), (96, 48)):
+    for cin, cout in ((1, 48), (48, 96), (5, 7), (96, 48), (384, 768),
+                      (768, 384), (32, 192), (24, 40), (1, 80)):
         wq = torch.from_numpy(rng.integers(-127, 128, (cout, 9 * cin))
                               .astype(np.int8))
-        packed = tic.prepack_int8_weight(wq)
-        assert packed.numel() == tic.prepack_int8_weight_numel(wq)
-        assert torch.equal(tic.unpack_int8_prepacked(packed, cout, cin), wq)
+        for wgmma in (None, False):
+            packed = tic.prepack_int8_weight(wq, wgmma=wgmma)
+            assert (packed.plan is not None) == (
+                wgmma is None and cout % 48 == 0
+                and (cin == 1 or cin % 16 == 0))
+            assert packed.w.numel() == tic.prepack_int8_weight_numel(
+                wq, packed.plan)
+            assert torch.equal(
+                tic.unpack_int8_prepacked(packed, cout, cin), wq)
+    # the first stage of a 48 -> 96 conv: taps 0..2, channel groups 0 and 1
+    wq = torch.from_numpy(rng.integers(-127, 128, (96, 9 * 48))
+                          .astype(np.int8))
+    packed = tic.prepack_int8_weight(wq)
+    assert packed.plan[:4] == (96, 1, 1, 3)
+    stage = packed.w[:3 * 2 * 96 * 16].reshape(3, 2, 96, 16)
+    w3 = wq.reshape(96, 9, 48)
+    for tap in range(3):
+        for grp in range(2):
+            assert torch.equal(stage[tap, grp],
+                               w3[:, tap, 16 * grp:16 * grp + 16])
+
+
+@pytest.mark.parametrize("cin,cout", [(1, 48), (48, 96), (768, 384),
+                                      (384, 768)])
+def test_int8_wgmma_plan_fits_shared_memory(cin, cout):
+    """The plan of every main-path conv shape fits one block's shared
+    memory, the narrow ones two blocks to an SM, and its ring holds at
+    least two weight stages."""
+    plan = tic.wgmma_plan(cin, cout)
+    assert plan is not None and plan.stages >= 2
+    assert cout % (plan.nbp * plan.bn) == 0
+    smem = tic.wgmma_smem_bytes(cin, plan)
+    assert smem <= (tic.SMEM_TWO_CTAS if plan.bn * plan.mw <= 96
+                    else tic.SMEM_LIMIT)
+    assert tic.wgmma_plan(cin, 40) is None and tic.wgmma_plan(24, cout) is None
+
+
+def test_plain_int8_modes_equal_jax_composition():
+    """The plain version's two modes against the JAX package's composition
+    of a pair, exact in f32: the first conv's result quantized with the
+    second conv's scale is ``quantize_act`` of ``relu(int8_conv3x3_pre(x)
+    * scale + bias)`` (the affine as the kernel's fma), and the second conv
+    of that int8 tensor is ``int8_conv3x3_pre`` of the f32 intermediate,
+    which quantizes it the same way."""
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((2, 7, 9, 32)) * 3).astype(np.float32)
+    w1 = rng.integers(-127, 128, (3, 3, 32, 48)).astype(np.int8)
+    w2 = rng.integers(-127, 128, (3, 3, 48, 16)).astype(np.int8)
+    sw1 = (rng.random(48) * 1e-2 + 1e-3).astype(np.float32)
+    sw2 = (rng.random(16) * 1e-2 + 1e-3).astype(np.float32)
+    sc = (rng.random(48) + 0.5).astype(np.float32)
+    bi = (rng.standard_normal(48) * 0.1).astype(np.float32)
+    sx1, sx2 = np.float32(0.05), np.float32(0.02)
+    y1 = np.asarray(jax.jit(jquant.int8_conv3x3_pre)(x, w1, sw1, sx1))
+    h = np.maximum((y1.astype(np.float64) * sc + bi).astype(np.float32), 0)
+    want_q = np.asarray(jax.jit(jquant.quantize_act)(h, sx2))
+    want_y2 = np.asarray(jax.jit(jquant.int8_conv3x3_pre)(h, w2, sw2, sx2))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    xt = t(x.transpose(0, 3, 1, 2))
+    ones = torch.ones(16)
+    q = tic.int8_conv3x3(xt, tfc.pack_conv_weight(w1), t(sw1),
+                         torch.tensor(sx1), t(sc), t(bi),
+                         s_out=torch.tensor(sx2))
+    assert q.dtype == torch.int8
+    np.testing.assert_array_equal(q.numpy().transpose(0, 2, 3, 1), want_q)
+    w2p = tfc.pack_conv_weight(w2)
+    acc = tic.int8_conv3x3(q, w2p, t(sw2), torch.tensor(sx2), ones,
+                           torch.zeros(16), raw=True)
+    y2 = acc.float() * (torch.tensor(sx2) * t(sw2))[None, :, None, None]
+    np.testing.assert_array_equal(y2.numpy().transpose(0, 2, 3, 1), want_y2)
+    # the int8 input's epilogue in f32: the affine of that dequant
+    out = tic.int8_conv3x3(q, w2p, t(sw2), torch.tensor(sx2), ones,
+                           torch.zeros(16), dtype=torch.float32)
+    assert out.dtype == torch.float32
+    np.testing.assert_array_equal(
+        out.numpy().transpose(0, 2, 3, 1), np.maximum(want_y2, 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_pair_int8_intermediate_gives_the_same_numbers(dtype):
+    """``Int8CBRPair``'s forward (the intermediate as int8, quantized after
+    the compute-dtype rounding) equals the two convs with the intermediate
+    in the compute dtype, bit for bit, with some intermediate values
+    clipping."""
+    from att_aspp_unet_tpu_torch.nn.blocks import Int8CBRPair
+
+    rng = np.random.default_rng(10)
+    pair = Int8CBRPair(16, 32, 24, dtype=dtype)
+    with torch.no_grad():
+        for i, (ci, co) in ((1, (16, 32)), (2, (32, 24))):
+            getattr(pair, f"w{i}").copy_(torch.from_numpy(
+                rng.integers(-127, 128, (co, 9 * ci)).astype(np.int8)))
+            getattr(pair, f"w_scale{i}").copy_(torch.from_numpy(
+                (rng.random(co) * 1e-2).astype(np.float32)))
+            getattr(pair, f"s{i}").copy_(torch.from_numpy(
+                (rng.random(co) + 0.5).astype(np.float32)))
+            getattr(pair, f"b{i}").copy_(torch.from_numpy(
+                (rng.standard_normal(co) * 0.1).astype(np.float32)))
+    x = torch.from_numpy((rng.standard_normal((2, 16, 12, 14)) * 2)
+                         .astype(np.float32)).to(dtype)
+    pair.s_x1.fill_(5.0 / 127)
+    h = tic.int8_conv3x3(x, pair.w1, pair.w_scale1, pair.s_x1, pair.s1,
+                         pair.b1)
+    pair.s_x2.fill_(float(h.float().amax()) / 100)
+    want = tic.int8_conv3x3(h, pair.w2, pair.w_scale2, pair.s_x2, pair.s2,
+                            pair.b2)
+    got = pair(x)
+    assert got.dtype == dtype and torch.equal(got, want)
 
 
 # ------------------------------------------------- calibration and the model
