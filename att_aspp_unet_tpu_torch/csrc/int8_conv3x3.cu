@@ -29,17 +29,19 @@
 // activation byte once, in as few bits as the function allows (int8 between
 // the two convs of a pair), and feeds the tensor cores through wgmma.  What
 // a CTA waits for, as measured on the card (builds with parts of the kernel
-// compiled out, timed by tools/bench_k3.py): neither the multiplies nor the
-// weight copies but the per-element work on the CUDA cores, the quantization
-// of a bf16 tile (halo included) and the epilogue, so both are written for
-// few instructions per value.
+// compiled out by throwaway macros, timed per conv): neither the multiplies
+// nor the weight copies but the per-element work on the CUDA cores, the
+// quantization of a bf16 tile (halo included) and the epilogue, so both are
+// written for few instructions per value.
 //
 // Two paths compute it, chosen by shape in the wrapper (never as a fallback):
 //
 //  * the wgmma path (second half of this file) for input channels that are
 //    whole 16-byte groups (or one channel) and output channels that are a
-//    multiple of 48: wgmma.mma_async m64nNk32 s8 x s8 -> s32, operands in
-//    shared memory.  Design:
+//    multiple of 48, wherever its tile fits (plan_wgmma alone decides the
+//    plan and the layout; the wrapper asks int8_conv3x3_wgmma_rows how to
+//    pack the weights): wgmma.mma_async m64nNk32 s8 x s8 -> s32, operands
+//    in shared memory.  Design:
 //    - Roles.  The pixels are M (64 per wgmma: one output row of a 64-wide
 //      tile, or 64 flat indices of a narrower frame) and the output channels
 //      are N (48, 96 or 192 per instruction: all legal s8 widths, so no row
@@ -127,7 +129,8 @@ struct Params {
   // mma.sync path
   int ntaps, nk;        // 9 and ceil(Cin / 32), or 1 and 1 (Cin = 1)
   // wgmma path: the plan (N per instruction, M chunks per warpgroup,
-  // warpgroups splitting N, taps per weight stage) and the geometry
+  // warpgroups splitting N, taps per weight stage, stages; plan_wgmma) and
+  // the geometry
   int bn, mw, nbp, tps, stages;
   int th, tw, in_w, cs, nch, in_pix, ng, tiles_x, tiles_y, spp, passes;
   uint32_t stage_bytes, off_stage, off_stg, off_bar, pitch;
@@ -1003,16 +1006,10 @@ int make_input_map(CUtensorMap* map, const Params& p) {
 
 uint32_t round_up(uint32_t v, uint32_t m) { return (v + m - 1) / m * m; }
 
-// The tile geometry and the shared-memory layout of a plan, as
-// ops/kernels/int8_conv.py computes them; returns the bytes, 0 for a plan
-// this path does not take.
-size_t plan_wgmma(Params& p) {
+// The tile geometry and the shared-memory layout of the plan in p (bn, mw,
+// nbp, tps, stages) for a frame of p.W x p.H; returns the bytes.
+size_t layout_wgmma(Params& p) {
   const int bn = p.bn;
-  if (!(bn == 48 || bn == 96 || bn == 192) || !(p.nbp == 1 || p.nbp == 2) ||
-      !(p.tps == 1 || p.tps == 3) || p.stages < (p.Cin == 1 ? 2 : 3) ||
-      p.stages > WG_MAX_STAGES || p.Cout % (p.nbp * bn) ||
-      !(p.Cin == 1 || p.Cin % 16 == 0))
-    return 0;
   p.nch = p.nbp == 1 ? 2 * p.mw : p.mw;
   if (p.W >= 64) {          // one output row of 64 pixels per M chunk
     p.tw = 64;
@@ -1056,6 +1053,77 @@ size_t plan_wgmma(Params& p) {
   return p.off_bar + (p.stages + WG_NBUF) * sizeof(uint64_t);
 }
 
+// Shared memory a block may use (optin) and a block's share where two share
+// an SM (two), on the current device.
+int smem_limits(size_t* optin, size_t* two) {
+  int dev = 0, opt = 0, per_sm = 0, reserved = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&opt, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&reserved,
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  *optin = (size_t)opt;
+  *two = (size_t)(per_sm / 2 - reserved);
+  return (int)e;
+}
+
+// The wgmma path's plan for p's shape, the one place it is decided; returns
+// the bytes of shared memory, 0 where the path does not take the shape.
+//  * N per instruction (bn): the widest of 192, 96, 48 that divides Cout;
+//    M chunks per warpgroup (mw): 2 for N = 48, else 1 (the instantiations).
+//  * The key (nbp, tps): the warpgroups split the pixels with three taps per
+//    weight stage where the widest tile (a frame 64 or more wide) fits the
+//    block's shared memory with the least ring (three stages; two for one
+//    input channel, whose passes are one step each), else they split the
+//    output channels, with three taps per stage, else one.  The weights'
+//    packing depends on nbp * bn alone (rows per pass), which the wrapper
+//    gets from int8_conv3x3_wgmma_rows; the key does not depend on the frame.
+//  * The ring: as many stages as the steps use (at most WG_MAX_STAGES) and
+//    the budget holds for this frame: a block's share where two share an SM
+//    if the accumulators leave registers for two (bn * mw <= 96) and the
+//    least ring fits it, else the block's whole shared memory.
+size_t plan_wgmma(Params& p, size_t optin, size_t two) {
+  if (!(p.Cin == 1 || p.Cin % 16 == 0) || p.Cout % 48) return 0;
+  p.bn = p.Cout % 192 == 0 ? 192 : p.Cout % 96 == 0 ? 96 : 48;
+  p.mw = p.bn == 48 ? 2 : 1;
+  const int least = p.Cin == 1 ? 2 : 3;
+  static const int keys[3][2] = {{1, 3}, {2, 3}, {2, 1}};
+  bool found = false;
+  for (int k = 0; k < 3 && !found; ++k) {
+    if (p.Cout % (keys[k][0] * p.bn)) continue;
+    Params q = p;
+    q.nbp = keys[k][0];
+    q.tps = keys[k][1];
+    q.stages = least;
+    q.W = 64;
+    q.H = 64;
+    if (layout_wgmma(q) <= optin) {
+      p.nbp = q.nbp;
+      p.tps = q.tps;
+      found = true;
+    }
+  }
+  if (!found) return 0;
+  p.stages = least;
+  layout_wgmma(p);
+  int most = p.passes * p.spp;
+  most = most < WG_MAX_STAGES ? most : WG_MAX_STAGES;
+  most = most > least ? most : least;
+  const size_t budgets[2] = {two, optin};
+  for (int b = p.bn * p.mw <= 96 ? 0 : 1; b < 2; ++b)
+    for (int s = most; s >= least; --s) {
+      p.stages = s;
+      const size_t bytes = layout_wgmma(p);
+      if (bytes <= budgets[b]) return bytes;
+    }
+  return 0;
+}
+
 template <int BN, int MW, int TPS>
 int launch_wgmma_as(const Params& p, size_t smem, const CUtensorMap& xmap,
                     cudaStream_t stream) {
@@ -1069,9 +1137,8 @@ int launch_wgmma_as(const Params& p, size_t smem, const CUtensorMap& xmap,
   return (int)cudaGetLastError();
 }
 
-// The instantiations, as int8_conv.py's WG_INSTANCES lists them: (N, M
-// chunks per warpgroup) with three taps per stage, one, or the im2col of one
-// input channel (TPS 0).
+// The instantiations: (N, M chunks per warpgroup) as plan_wgmma pairs them,
+// with three taps per stage, one, or the im2col of one input channel (TPS 0).
 template <int BN, int MW>
 int launch_wgmma_tps(const Params& p, size_t smem, const CUtensorMap& xmap,
                      cudaStream_t stream) {
@@ -1080,43 +1147,57 @@ int launch_wgmma_tps(const Params& p, size_t smem, const CUtensorMap& xmap,
   return launch_wgmma_as<BN, MW, 1>(p, smem, xmap, stream);
 }
 
-int launch_wgmma(Params& p, cudaStream_t stream) {
-  const size_t smem = plan_wgmma(p);
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return (int)e;
-  if (smem == 0 || smem > (size_t)optin)
-    return (int)cudaErrorInvalidConfiguration;
+// rows: the rows per pass of the weights' packing, which must be this plan's
+int launch_wgmma(Params& p, int rows, cudaStream_t stream) {
+  size_t optin = 0, two = 0;
+  const int e = smem_limits(&optin, &two);
+  if (e != 0) return e;
+  const size_t smem = plan_wgmma(p, optin, two);
+  if (smem == 0 || p.nbp * p.bn != rows) return (int)cudaErrorInvalidValue;
   CUtensorMap xmap = {};
   if (p.Cin > 1) {
     const int me = make_input_map(&xmap, p);
     if (me != 0) return me;
   }
-  if (p.bn == 48 && p.mw == 2) return launch_wgmma_tps<48, 2>(p, smem, xmap, stream);
-  if (p.bn == 96 && p.mw == 1) return launch_wgmma_tps<96, 1>(p, smem, xmap, stream);
-  if (p.bn == 192 && p.mw == 1) return launch_wgmma_tps<192, 1>(p, smem, xmap, stream);
-  return (int)cudaErrorInvalidConfiguration;
+  if (p.bn == 48) return launch_wgmma_tps<48, 2>(p, smem, xmap, stream);
+  if (p.bn == 96) return launch_wgmma_tps<96, 1>(p, smem, xmap, stream);
+  return launch_wgmma_tps<192, 1>(p, smem, xmap, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// The wgmma path's weight packing for Cin -> Cout on the current device:
+// *rows = its rows per pass (the plan's nbp * bn), 0 where the path does not
+// take the shape.  Returns a cudaError_t.
+int int8_conv3x3_wgmma_rows(int Cin, int Cout, int* rows) {
+  size_t optin = 0, two = 0;
+  const int e = smem_limits(&optin, &two);
+  *rows = 0;
+  if (e != 0) return e;
+  Params p = {};
+  p.Cin = Cin;
+  p.Cout = Cout;
+  p.W = 64;
+  p.H = 64;
+  if (Cin > 0 && Cout > 0 && plan_wgmma(p, optin, two) != 0)
+    *rows = p.nbp * p.bn;
+  return 0;
+}
+
 // Returns a cudaError_t (0 = launched).  x is channel-last (N, H, W, Cin),
 // bf16, or int8 already quantized with sx (in_int8), aligned to 16 bytes; wp
-// the weights prepacked for this Cin, Cout and plan; sx a device pointer to
-// one f32; exactly one of out and acc_out (int32) is non-null, out bf16 or,
-// where sout (one f32 on the device) is non-null, int8, both channel-last;
-// bn = 0 runs the mma.sync path, else the wgmma path with the plan (bn, mw,
-// nbp, tps, stages); the stream is a cudaStream_t.
+// the weights prepacked for the path: rows = 0 the mma.sync path, else the
+// wgmma path, packed with the rows per pass that int8_conv3x3_wgmma_rows
+// gives; sx a device pointer to one f32; exactly one of out and acc_out
+// (int32) is non-null, out bf16 or, where sout (one f32 on the device) is
+// non-null, int8, both channel-last; the stream is a cudaStream_t.
 int int8_conv3x3_launch(const void* x, const void* wp, const void* sx,
                         const void* sw, const void* scale, const void* bias,
                         const void* sout, void* out, void* acc_out, int N,
-                        int Cin, int Cout, int H, int W, int in_int8, int bn,
-                        int mw, int nbp, int tps, int stages, void* stream) {
+                        int Cin, int Cout, int H, int W, int in_int8, int rows,
+                        void* stream) {
   Params p = {};
   p.x = x;
   p.wp = (const int8_t*)wp;
@@ -1133,16 +1214,11 @@ int int8_conv3x3_launch(const void* x, const void* wp, const void* sx,
   p.H = H;
   p.W = W;
   p.in_int8 = in_int8;
-  p.bn = bn;
-  p.mw = mw;
-  p.nbp = nbp;
-  p.tps = tps;
-  p.stages = stages;
   if ((out == nullptr) == (acc_out == nullptr) || N <= 0 || Cin <= 0 ||
       Cout <= 0 || H <= 0 || W <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bn == 0 ? launch_mma(p, st) : launch_wgmma(p, st);
+  return rows == 0 ? launch_mma(p, st) : launch_wgmma(p, rows, st);
 }
 
 }  // extern "C"

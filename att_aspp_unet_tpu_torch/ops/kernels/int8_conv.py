@@ -19,11 +19,12 @@ is already quantized (an int8 ``x``).
 
 The kernel has two paths: a wgmma one for input channels that are whole
 16-byte groups (or one channel) and output channels that are a multiple of
-48, and an mma.sync one for every shape.  Each reads the weights in an order
-of its own; :func:`prepack_int8_weight` decides the path and its plan from
-the channel counts (the shared-memory layout is computed here as the CUDA
-source computes it) and puts the canonical (Cout, 9*Cin) weights into that
-order, once per weight set.
+48 wherever its tile fits, and an mma.sync one for every shape.  Each reads
+the weights in an order of its own.  The CUDA source alone plans the wgmma
+path (its tiles, shared memory and weight stages); :func:`prepack_int8_weight`
+asks it which shapes it takes and the one number its weight order depends
+on, the output channels per pass, and puts the canonical (Cout, 9*Cin)
+weights into that order, once per weight set.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from . import _build
 from .fused_conv import unpack_conv_weight
 
 _MC, _KC = 64, 32          # the mma.sync path's row block and K-step (bytes)
-SMEM_LIMIT = 232448        # bytes a block may use on sm_90 (227 KB)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -108,105 +108,22 @@ def int8_conv3x3_reference(x: torch.Tensor, wq: torch.Tensor,
 
 # --------------------------------------------------------------- the paths
 
-class WgPlan(NamedTuple):
-    """How the wgmma path runs a conv: ``bn`` output channels per wgmma (48,
-    96 or 192), ``mw`` M chunks of 64 pixels per warpgroup, ``nbp`` 1 where
-    the two warpgroups split the pixels and 2 where they split the output
-    channels, ``tps`` taps per weight stage (3, or 1 where the input tile
-    leaves no room), ``stages`` weight stages in the ring."""
-    bn: int
-    mw: int
-    nbp: int
-    tps: int
-    stages: int
-
-
-# N per instruction -> M chunks per warpgroup: the (bn, mw) the CUDA source
-# instantiates, each with three taps per stage, or one
-WG_INSTANCES = {48: 2, 96: 1, 192: 1}
-WG_MAX_STAGES = 16
-WG_NBUF, WG_CHUNK = 2, 64        # tile chunks in flight, bytes a pixel
-SMEM_TWO_CTAS = 113 * 1024       # a block's share where two share an SM
-
-
-def _wg_sizes(cin: int, bn: int, mw: int, nbp: int, tps: int):
-    """(input tile, one weight stage, the warps' parking slots, which also
-    stage the tile's chunks) in bytes, as the kernel lays them out for a
-    frame at least 64 wide (narrower frames take less)."""
-    nch = 2 * mw if nbp == 1 else mw
-    in_p = (nch + 2) * 66
-    slots = 64 * (2 * bn + 16)
-    if cin == 1:
-        return 2 * nch * 64 * 16 + _round_up(in_p, 16), 32 * nbp * bn, slots
-    in_pix = _round_up(in_p, 8)
-    return (_round_up(cin // 16, 2) * in_pix * 16, tps * 32 * nbp * bn,
-            max(slots, WG_NBUF * in_pix * WG_CHUNK))
-
-
-def _wg_fixed(tile: int, slots: int) -> int:
-    """The bytes before the barriers but the weight stages."""
-    return _round_up(tile, 128) + 128 + slots
-
-
-def wgmma_smem_bytes(cin: int, plan: WgPlan) -> int:
-    """Shared memory of the wgmma path's tile for ``plan``."""
-    tile, stage, slots = _wg_sizes(cin, *plan[:4])
-    return _round_up(_wg_fixed(tile, slots) + plan.stages * stage, 8) \
-        + 8 * (plan.stages + WG_NBUF)
-
-
-def make_plan(cin: int, cout: int, bn: int, mw: int, nbp: int,
-              tps: int) -> Optional[WgPlan]:
-    """The plan (bn, mw, nbp, tps) for Cin -> Cout with as many weight
-    stages as its steps use and shared memory holds (at most
-    ``WG_MAX_STAGES``, at least three, two for one input channel, whose
-    passes are one step each): within a block's share
-    of an SM that two blocks share where the accumulators leave registers
-    for two (bn * mw <= 96), else within the whole; None where the kernel
-    does not take it."""
-    if (WG_INSTANCES.get(bn) != mw or tps not in (1, 3) or nbp not in (1, 2)
-            or cout % (nbp * bn) or not (cin == 1 or cin % 16 == 0)):
-        return None
-    tile, stage, slots = _wg_sizes(cin, bn, mw, nbp, tps)
-    spp = 1 if cin == 1 else _round_up(cin // 16, 2) // 2 * (9 // tps)
-    steps = cout // (nbp * bn) * spp
-    least = 2 if cin == 1 else 3
-    for budget in ((SMEM_TWO_CTAS, SMEM_LIMIT) if bn * mw <= 96
-                   else (SMEM_LIMIT,)):
-        room = (budget - _wg_fixed(tile, slots) - 8
-                - 8 * (WG_MAX_STAGES + WG_NBUF)) // stage
-        if room >= least:
-            return WgPlan(bn, mw, nbp, tps,
-                          max(least, min(steps, WG_MAX_STAGES, room)))
-    return None
-
-
-def wgmma_plan(cin: int, cout: int) -> Optional[WgPlan]:
-    """The wgmma path's plan for Cin -> Cout, None where it does not take
-    the shape: N per instruction the widest of 192, 96, 48 that divides
-    Cout; the warpgroups split the pixels where the tile fits, else the
-    output channels, with three taps per weight stage where that fits,
-    else one."""
-    if cout % 48 or not (cin == 1 or cin % 16 == 0):
-        return None
-    bn = 192 if cout % 192 == 0 else 96 if cout % 96 == 0 else 48
-    for nbp, tps in ((1, 3), (2, 3), (2, 1)):
-        plan = make_plan(cin, cout, bn, WG_INSTANCES[bn], nbp, tps)
-        if plan is not None:
-            return plan
-    return None
-
-
-def wgmma_takes(cin: int, cout: int) -> bool:
-    """Whether the wgmma path runs Cin -> Cout."""
-    return wgmma_plan(cin, cout) is not None
-
-
 class PackedInt8(NamedTuple):
-    """A conv's int8 weights in the kernel's order (1-D) and the wgmma
-    plan they are for (None: the mma.sync path's order)."""
+    """A conv's int8 weights in the kernel's order (1-D) and the output
+    channels per pass of the wgmma path's order they are in (0: the mma.sync
+    path's order)."""
     w: torch.Tensor
-    plan: Optional[WgPlan] = None
+    rows: int = 0
+
+
+def wgmma_rows(cin: int, cout: int) -> int:
+    """The output channels per pass of the wgmma path's weight order for
+    Cin -> Cout on the current card, 0 where the path does not take the
+    shape (the kernel's plan decides both)."""
+    rows = ctypes.c_int(0)
+    _build.check(_lib().int8_conv3x3_wgmma_rows(cin, cout, ctypes.byref(rows)),
+                 "int8_conv3x3 wgmma plan")
+    return rows.value
 
 
 def _prepack_mma(wq: torch.Tensor) -> torch.Tensor:
@@ -223,14 +140,14 @@ def _prepack_mma(wq: torch.Tensor) -> torch.Tensor:
     return w5.permute(0, 3, 2, 1, 4).reshape(-1).contiguous()
 
 
-def _prepack_wgmma(wq: torch.Tensor, plan: WgPlan) -> torch.Tensor:
+def _prepack_wgmma(wq: torch.Tensor, rows: int) -> torch.Tensor:
     """The wgmma path's order: one weight stage per kernel step, in step
-    order (pass of ``nbp * bn`` output channels, k32 step of input
-    channels, group of ``tps`` taps), each ``[tap][2][rows][16]`` (K-major
-    core matrices: 8 output channels x 16 input channels); where Cin = 1 one
-    stage per pass, ``[2][rows][16]`` with K = the nine taps."""
+    order (pass of ``rows`` output channels, k32 step of input channels,
+    tap), each ``[tap][2][rows][16]`` (K-major core matrices: 8 output
+    channels x 16 input channels), so that a stage of one tap or of three
+    lies whole; where Cin = 1 one stage per pass, ``[2][rows][16]`` with K =
+    the nine taps."""
     cout, cin = wq.shape[0], wq.shape[1] // 9
-    rows = plan.nbp * plan.bn
     passes = cout // rows
     if cin == 1:
         w = wq.new_zeros(cout, 32)
@@ -240,40 +157,41 @@ def _prepack_wgmma(wq: torch.Tensor, plan: WgPlan) -> torch.Tensor:
     ng = _round_up(cin // 16, 2)
     w3 = wq.new_zeros(cout, 9, ng * 16)
     w3[:, :, :cin] = wq.reshape(cout, 9, cin)
-    w7 = w3.reshape(passes, rows, 9 // plan.tps, plan.tps, ng // 2, 2, 16)
-    return w7.permute(0, 4, 2, 3, 5, 1, 6).reshape(-1).contiguous()
+    w6 = w3.reshape(passes, rows, 9, ng // 2, 2, 16)
+    return w6.permute(0, 3, 2, 4, 1, 5).reshape(-1).contiguous()
 
 
-def prepack_int8_weight(wq: torch.Tensor, wgmma: Optional[bool] = None,
-                        plan: Optional[WgPlan] = None) -> PackedInt8:
-    """(Cout, 9*Cin) int8 in (ky, kx, ci) order -> :class:`PackedInt8`: for
-    the wgmma path wherever it takes the shape (``plan``: another of its
-    plans), else for the mma.sync path; ``wgmma`` forces one.  Do it once
-    per weight set."""
+def prepack_int8_weight(wq: torch.Tensor,
+                        mma_sync: bool = False) -> PackedInt8:
+    """(Cout, 9*Cin) int8 in (ky, kx, ci) order on a card ->
+    :class:`PackedInt8`: for the wgmma path wherever it takes the shape,
+    else (or with ``mma_sync``) for the mma.sync path.  Do it once per
+    weight set."""
     cout, cin = wq.shape[0], wq.shape[1] // 9
-    if plan is None and wgmma is not False:
-        plan = wgmma_plan(cin, cout)
-        if plan is None and wgmma:
-            raise ValueError(f"int8_conv3x3: the wgmma path does not take "
-                             f"{cin}->{cout}")
-    if wgmma is False or plan is None:
+    if mma_sync:
         return PackedInt8(_prepack_mma(wq))
-    return PackedInt8(_prepack_wgmma(wq, plan), plan)
+    if wq.device.type != "cuda":
+        raise ValueError("int8_conv3x3: the wgmma path's plan comes from the "
+                         f"card; prepack weights on it, not on {wq.device}")
+    with torch.cuda.device(wq.device):
+        rows = wgmma_rows(cin, cout)
+    if rows == 0:
+        return PackedInt8(_prepack_mma(wq))
+    return PackedInt8(_prepack_wgmma(wq, rows), rows)
 
 
 def unpack_int8_prepacked(packed: PackedInt8, m: int,
                           cin: int) -> torch.Tensor:
     """Inverse of :func:`prepack_int8_weight`: the canonical weights."""
-    w, plan = packed
-    if plan is not None:
-        rows = plan.nbp * plan.bn
+    w, rows = packed
+    if rows:
         passes = m // rows
         if cin == 1:
             w4 = w.reshape(passes, 2, rows, 16).permute(0, 2, 1, 3)
             return w4.reshape(m, 32)[:, :9].contiguous()
         ng = _round_up(cin // 16, 2)
-        w7 = w.reshape(passes, ng // 2, 9 // plan.tps, plan.tps, 2, rows, 16)
-        w3 = w7.permute(0, 5, 2, 3, 1, 4, 6).reshape(m, 9, ng * 16)
+        w6 = w.reshape(passes, ng // 2, 9, 2, rows, 16)
+        w3 = w6.permute(0, 4, 2, 1, 3, 5).reshape(m, 9, ng * 16)
         return w3[:, :, :cin].reshape(m, 9 * cin).contiguous()
     taps, k = (1, 9) if cin == 1 else (9, cin)
     mpad, kpad = _round_up(m, _MC), _round_up(k, _KC)
@@ -282,12 +200,11 @@ def unpack_int8_prepacked(packed: PackedInt8, m: int,
     return w3[:m, :, :k].reshape(m, 9 * cin).contiguous()
 
 
-def prepack_int8_weight_numel(wq: torch.Tensor,
-                              plan: Optional[WgPlan] = None) -> int:
-    """Elements of the prepacked ``wq`` for ``plan`` (None: the mma.sync
-    path)."""
+def prepack_int8_weight_numel(wq: torch.Tensor, rows: int = 0) -> int:
+    """Elements of the prepacked ``wq`` for the wgmma path's ``rows`` per
+    pass (0: the mma.sync path)."""
     m, cin = wq.shape[0], wq.shape[1] // 9
-    if plan is not None:
+    if rows:
         return m * (32 if cin == 1 else 9 * _round_up(cin // 16, 2) * 16)
     k = 9 if cin == 1 else cin
     return _round_up(m, _MC) * (1 if cin == 1 else 9) * _round_up(k, _KC)
@@ -299,9 +216,13 @@ def _lib():
     lib = _build.load("int8_conv3x3")
     fn = lib.int8_conv3x3_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        rows = lib.int8_conv3x3_wgmma_rows
+        rows.argtypes = [ctypes.c_int, ctypes.c_int,
+                         ctypes.POINTER(ctypes.c_int)]
+        rows.restype = ctypes.c_int
     return lib
 
 
@@ -340,21 +261,14 @@ def _check_cuda(x, wq, w_scale, s_x, scale, bias, s_out):
 
 
 def _check_packed(packed, wq):
-    cout, cin = wq.shape[0], wq.shape[1] // 9
+    cout = wq.shape[0]
     if not isinstance(packed, PackedInt8):
         raise ValueError("int8_conv3x3: packed must come from "
                          "prepack_int8_weight")
-    plan = packed.plan
-    if plan is not None and (make_plan(cin, cout, *plan[:4]) is None
-                             or not (2 if cin == 1 else 3)
-                             <= plan.stages <= WG_MAX_STAGES
-                             or wgmma_smem_bytes(cin, plan) > SMEM_LIMIT):
-        raise ValueError(f"int8_conv3x3: the wgmma plan {plan} does not fit "
-                         f"{cin}->{cout}")
-    w = packed.w
+    w, rows = packed
     if (w.device != wq.device or w.dtype != torch.int8 or w.dim() != 1
-            or not w.is_contiguous()
-            or w.numel() != prepack_int8_weight_numel(wq, plan)):
+            or not w.is_contiguous() or (rows and cout % rows)
+            or w.numel() != prepack_int8_weight_numel(wq, rows)):
         raise ValueError("int8_conv3x3: the prepacked weights do not match "
                          "wq")
 
@@ -376,7 +290,7 @@ def int8_conv3x3(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     ``torch.channels_last`` memory format, computes in bf16 and returns in
     the same format; it converts nothing.  ``packed`` is
     :func:`prepack_int8_weight` of ``wq`` (prepacked on the fly without it;
-    its plan decides the path).  CPU tensors go to the plain version.
+    its order decides the path).  CPU tensors go to the plain version.
     """
     if raw and s_out is not None:
         raise ValueError("int8_conv3x3: raw and s_out exclude each other")
@@ -395,7 +309,7 @@ def int8_conv3x3(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
         _check_packed(packed, wq)
     N, cin, H, W = x.shape
     cout = wq.shape[0]
-    if packed.plan is None and N * -(-cout // _MC) > 65535:
+    if not packed.rows and N * -(-cout // _MC) > 65535:
         raise ValueError(f"int8_conv3x3: {N} frames x {cout} channels is "
                          "more than one launch of the mma.sync path takes")
     out_dtype = (torch.int32 if raw else torch.int8 if s_out is not None
@@ -404,7 +318,6 @@ def int8_conv3x3(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    plan = packed.plan or WgPlan(0, 0, 0, 0, 0)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.int8_conv3x3_launch(
@@ -412,7 +325,7 @@ def int8_conv3x3(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
             w_scale.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             None if s_out is None else s_out.data_ptr(),
             None if raw else out.data_ptr(), out.data_ptr() if raw else None,
-            N, cin, cout, H, W, int(x.dtype == torch.int8), *plan,
+            N, cin, cout, H, W, int(x.dtype == torch.int8), packed.rows,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "int8_conv3x3 launch")
     int8_conv3x3.launches += 1

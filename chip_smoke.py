@@ -37,11 +37,11 @@ Phases (any failure exits non-zero and prints no result line):
    the second conv reading that int8 tensor): int32 accumulators exact from
    a bf16 and from an int8 input on both paths, bf16 outputs within one ulp
    of the plain version, the int8 intermediate bit-equal to ``quantize_act``
-   of the plain bf16 result; each conv's line names its path (the wgmma
-   plan, or mma.sync) and its bound, the set's line the bound of both forms
-   (int8 intermediate, and bf16 in and out per conv); timed beside the bf16
-   form, the mma.sync path and im2col + ``torch._int_mm`` (cuBLASLt's int8
-   GEMM) as ``library_ms``;
+   of the plain bf16 result; each conv's line names its path (wgmma with
+   its output channels a pass, or mma.sync) and its bound, the set's line
+   the bound of both forms (int8 intermediate, and bf16 in and out per
+   conv); timed beside the bf16 form and im2col + ``torch._int_mm``
+   (cuBLASLt's int8 GEMM) as ``library_ms``;
 3. direct path: the port's ``predict`` CLI on a synthetic 140-frame ``.mha``
    sweep with the repo's trained weights (base_c 48, hflip TTA), the kernel
    launch counters zeroed just before and read just after; output checks; 6
@@ -438,12 +438,8 @@ def k3_bound(N, cin, cout, hw, in_bytes, out_bytes):
 
 
 def k3_path(packed) -> str:
-    plan = packed.plan
-    return ("mma.sync" if plan is None else
-            "wgmma N{} x{} {} {}-tap stages, {} ring".format(
-                plan.bn, plan.mw,
-                "pixels" if plan.nbp == 1 else "channels", plan.tps,
-                plan.stages))
+    return (f"wgmma, {packed.rows} output channels a pass" if packed.rows
+            else "mma.sync")
 
 
 def phase_k3_set(dev, label):
@@ -454,10 +450,10 @@ def phase_k3_set(dev, label):
     one's kernel output; the main set also the ``--no_aspp`` bridge conv
     (bf16 in and out).  Held to the plain version: int32 accumulators exact
     from either input, bf16 outputs within one ulp, the int8 intermediate
-    bit-equal to ``quantize_act`` of the plain bf16 result.  Timed: the
-    served form (the path the wrapper picks), the bf16-in, bf16-out form on
-    that path and on the mma.sync path, the plain version, im2col +
-    ``torch._int_mm``.  Returns the sums over the sixteen."""
+    bit-equal to ``quantize_act`` of the plain bf16 result; the accumulators
+    also on the mma.sync path.  Timed: the served form (the path the wrapper
+    picks), the bf16-in, bf16-out form on that path, the plain version,
+    im2col + ``torch._int_mm``.  Returns the sums over the sixteen."""
     import torch
 
     from att_aspp_unet_tpu_torch.ops.kernels import int8_conv as ic
@@ -467,7 +463,7 @@ def phase_k3_set(dev, label):
     if label == "main":
         convs.append(("bridge", 8 * base_c, 16 * base_c, size // 16))
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    keys = ("ms", "bf16_ms", "mma_ms", "plain_ms", "lib_ms", "bound_ms",
+    keys = ("ms", "bf16_ms", "plain_ms", "lib_ms", "bound_ms",
             "ops", "bytes", "bf16_bound_ms", "bf16_bytes")
     tot = dict.fromkeys(keys, 0.0)
     tot["max_abs_err"] = 0.0
@@ -497,8 +493,8 @@ def phase_k3_set(dev, label):
                 memory_format=torch.channels_last)
         rest = (wq, ws, s_x, sc, bi)
         packed = ic.prepack_int8_weight(wq)
-        mma = ic.prepack_int8_weight(wq, wgmma=False)
-        paths.add(packed.plan is not None)
+        mma = ic.prepack_int8_weight(wq, mma_sync=True)
+        paths.add(packed.rows != 0)
         # the plain version: the exact integer conv once, then its epilogue
         acc_want = ic.int_conv3x3(xq, wq)
         want = ic.int8_epilogue(acc_want, ws, s_x, sc, bi, torch.bfloat16)
@@ -530,7 +526,6 @@ def phase_k3_set(dev, label):
                                              s_out=s_out), reps)
         bf16_ms = cuda_ms(lambda: ic.int8_conv3x3(x, *rest, packed=packed),
                           reps)
-        mma_ms = cuda_ms(lambda: ic.int8_conv3x3(x, *rest, packed=mma), reps)
         plain_ms = cuda_ms(lambda: ic.int8_conv3x3_reference(
             served_x, *rest, s_out=s_out), 1)
         xq_nhwc = xq.permute(0, 2, 3, 1).contiguous()
@@ -549,8 +544,8 @@ def phase_k3_set(dev, label):
             f"{'int8' if second else 'bf16'} in, {'int8' if first else 'bf16'}"
             f" out, {k3_path(packed)}: kernel {ms:.3f} ms "
             f"({ops / ms / 1e9:.1f} TOP/s), bound {b_ms:.3f} ms ({bound_by}); "
-            f"bf16 in and out {bf16_ms:.3f} ms (bound {bb_ms:.3f} ms), "
-            f"mma.sync path {mma_ms:.3f} ms; plain {plain_ms:.3f} ms; im2col "
+            f"bf16 in and out {bf16_ms:.3f} ms (bound {bb_ms:.3f} ms); "
+            f"plain {plain_ms:.3f} ms; im2col "
             f"+ torch._int_mm "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'} (its int32 "
             f"equal: {lib_ok}); accumulators exact, outputs within {ulps} "
@@ -562,10 +557,9 @@ def phase_k3_set(dev, label):
         if name == "bridge":
             tot.update(bridge_ms=ms, bridge_plain_ms=plain_ms,
                        bridge_library_ms=lib_ms, bridge_bound_ms=b_ms,
-                       bridge_bound_by=bound_by, bridge_mma_ms=mma_ms,
-                       bridge_path=k3_path(packed))
+                       bridge_bound_by=bound_by, bridge_path=k3_path(packed))
         else:
-            for k, v in (("ms", ms), ("bf16_ms", bf16_ms), ("mma_ms", mma_ms),
+            for k, v in (("ms", ms), ("bf16_ms", bf16_ms),
                          ("plain_ms", plain_ms), ("lib_ms", lib_ms),
                          ("bound_ms", b_ms), ("ops", ops), ("bytes", nbytes),
                          ("bf16_bound_ms", bb_ms), ("bf16_bytes", bf_bytes)):
@@ -580,8 +574,8 @@ def phase_k3_set(dev, label):
         f"{tot['ops'] / tot['ms'] / 1e9:.1f} TOP/s, bound "
         f"{tot['bound_ms']:.3f} ms (int8 intermediate, {tot['bound_by']}); "
         f"bf16 in and out {tot['bf16_ms']:.3f} ms (bound "
-        f"{tot['bf16_bound_ms']:.3f} ms, per-conv bf16 form); mma.sync path "
-        f"{tot['mma_ms']:.3f} ms; plain {tot['plain_ms']:.3f} ms, im2col + "
+        f"{tot['bf16_bound_ms']:.3f} ms, per-conv bf16 form); plain "
+        f"{tot['plain_ms']:.3f} ms, im2col + "
         f"torch._int_mm "
         f"{tot['lib_ms'] if tot['lib_ms'] is None else round(tot['lib_ms'], 3)}"
         f" ms; paths: {'wgmma' if True in paths else ''}"
@@ -604,10 +598,9 @@ def phase_k3(dev):
              "ms": main["ms"], "plain_ms": main["plain_ms"],
              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
              "library_ms": main["lib_ms"], "bf16_form_ms": main["bf16_ms"],
-             "bf16_form_bound_ms": main["bf16_bound_ms"],
-             "mma_sync_ms": main["mma_ms"]}
+             "bf16_form_bound_ms": main["bf16_bound_ms"]}
     for k in ("bridge_ms", "bridge_plain_ms", "bridge_library_ms",
-              "bridge_bound_ms", "bridge_bound_by", "bridge_mma_ms"):
+              "bridge_bound_ms", "bridge_bound_by"):
         entry[k] = main[k]
     for label in ("tier2", "roi"):
         t = sets[label]
@@ -615,8 +608,7 @@ def phase_k3(dev):
                       f"{label}_bound_ms": t["bound_ms"],
                       f"{label}_bound_by": t["bound_by"],
                       f"{label}_library_ms": t["lib_ms"],
-                      f"{label}_bf16_form_ms": t["bf16_ms"],
-                      f"{label}_mma_sync_ms": t["mma_ms"]})
+                      f"{label}_bf16_form_ms": t["bf16_ms"]})
     return entry
 
 

@@ -504,7 +504,7 @@ def test_int8_conv3x3_kernel_edge_shapes(rng, cuda_device, N, cin, cout, H, W):
 def test_int8_conv3x3_prepacked_and_rejects(rng, cuda_device):
     args = _int8_args(rng, cuda_device, 2, 48, 96, 32, 32)
     packed = tic.prepack_int8_weight(args[1])
-    assert packed.plan is not None
+    assert packed.rows == 96
     assert torch.equal(tic.int8_conv3x3(*args, packed=packed),
                        tic.int8_conv3x3(*args))
     with pytest.raises(ValueError):
@@ -517,15 +517,18 @@ def test_int8_conv3x3_prepacked_and_rejects(rng, cuda_device):
         tic.int8_conv3x3(args[0].float(), *args[1:])
     with pytest.raises(ValueError):
         tic.int8_conv3x3(*args, raw=True, s_out=args[3])
-    with pytest.raises(ValueError):       # 8 output channels: no wgmma plan
-        tic.prepack_int8_weight(args[1][:8], wgmma=True)
+    with pytest.raises(RuntimeError):     # packed for another plan
+        tic.int8_conv3x3(*args, packed=tic.PackedInt8(
+            tic._prepack_wgmma(args[1], 48), 48))
 
 
-# Shapes both of K3's paths take: every main-path and ROI conv shape the
-# wgmma path takes (at 2 frames), and frames that are no multiple of its
-# tile (rows and columns ragged; narrower than 64: the flat M chunks).
+# Shapes both of K3's paths take: every main-path and ROI conv shape whose
+# channels the wgmma path takes (at 2 frames: output channels a multiple of
+# 48, input channels whole 16-byte groups or one), and frames that are no
+# multiple of its tile (rows and columns ragged; narrower than 64: the flat
+# M chunks).
 INT8_BOTH = sorted({(N, cin, cout, hw, hw) for N, cin, cout, hw in INT8_CONVS
-                    if tic.wgmma_takes(cin, cout)}
+                    if cout % 48 == 0 and (cin == 1 or cin % 16 == 0)}
                    | {(1, 48, 96, 37, 50), (2, 1, 48, 19, 70),
                       (1, 384, 768, 9, 13), (3, 96, 48, 5, 130),
                       (1, 768, 384, 11, 66), (2, 192, 192, 2, 3)})
@@ -536,11 +539,12 @@ INT8_BOTH = sorted({(N, cin, cout, hw, hw) for N, cin, cout, hw in INT8_CONVS
 @pytest.mark.parametrize("N,cin,cout,H,W", INT8_BOTH)
 def test_int8_conv3x3_each_path_matches_plain(rng, cuda_device, N, cin, cout,
                                               H, W, wgmma):
-    """Each path forced on the shapes both take: accumulators exact, bf16
-    outputs within one ulp of the plain version."""
+    """Each path on the shapes both take (the wgmma path the one the wrapper
+    picks there): accumulators exact, bf16 outputs within one ulp of the
+    plain version."""
     args = _int8_args(rng, cuda_device, N, cin, cout, H, W)
-    packed = tic.prepack_int8_weight(args[1], wgmma=wgmma)
-    assert (packed.plan is not None) == wgmma
+    packed = tic.prepack_int8_weight(args[1], mma_sync=not wgmma)
+    assert (packed.rows != 0) == wgmma
     acc = tic.int8_conv3x3(*args, packed=packed, raw=True)
     got = tic.int8_conv3x3(*args, packed=packed)
     torch.cuda.synchronize()
@@ -557,15 +561,15 @@ INT8_MODES = [(2, 1, 48, 64, 64), (2, 48, 48, 64, 64), (2, 96, 192, 32, 32),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("wgmma", [None, False], ids=["chosen", "mma_sync"])
+@pytest.mark.parametrize("mma_sync", [False, True], ids=["chosen", "mma_sync"])
 @pytest.mark.parametrize("N,cin,cout,H,W", INT8_MODES)
 def test_int8_conv3x3_int8_output_and_input_modes(rng, cuda_device, N, cin,
-                                                  cout, H, W, wgmma):
+                                                  cout, H, W, mma_sync):
     """The output quantized with ``s_out`` is bit-equal to ``quantize_act``
     of the plain bf16 result; an int8 input (the quantized x) gives the
     accumulators exactly and the bf16 outputs within one ulp."""
     args = _int8_args(rng, cuda_device, N, cin, cout, H, W)
-    packed = tic.prepack_int8_weight(args[1], wgmma=wgmma)
+    packed = tic.prepack_int8_weight(args[1], mma_sync=mma_sync)
     plain = tic.int8_conv3x3_reference(*args)
     s_out = (plain.float().amax() / 127).reshape(())
     q = tic.int8_conv3x3(*args, packed=packed, s_out=s_out)

@@ -187,50 +187,55 @@ def test_plain_int8_conv_equals_jax_int8_conv3x3_pre():
 
 
 def test_int8_kernel_weights_prepack_round_trip():
-    """Both paths' weight orders round-trip; the wgmma path takes the
-    model's shapes, the mma.sync path the rest; its stages hold the
-    K-major core matrices (8 output channels x 16 input channels) of one
-    k32 step's taps in the kernel's step order."""
+    """Both paths' weight orders round-trip: the mma.sync path's for every
+    shape, the wgmma path's for each count of output channels a pass that
+    its plan may pick (one or two warpgroups' N of 48, 96 or 192) wherever
+    it takes the channels.  The wgmma path's plan comes from the card, so
+    on the CPU only the mma.sync order is prepacked by default."""
     rng = np.random.default_rng(4)
     for cin, cout in ((1, 48), (48, 96), (5, 7), (96, 48), (384, 768),
                       (768, 384), (32, 192), (24, 40), (1, 80)):
         wq = torch.from_numpy(rng.integers(-127, 128, (cout, 9 * cin))
                               .astype(np.int8))
-        for wgmma in (None, False):
-            packed = tic.prepack_int8_weight(wq, wgmma=wgmma)
-            assert (packed.plan is not None) == (
-                wgmma is None and cout % 48 == 0
-                and (cin == 1 or cin % 16 == 0))
+        packs = [tic.prepack_int8_weight(wq, mma_sync=True)]
+        if cout % 48 == 0 and (cin == 1 or cin % 16 == 0):
+            packs += [tic.PackedInt8(tic._prepack_wgmma(wq, rows), rows)
+                      for rows in (48, 96, 192, 384) if cout % rows == 0]
+        for packed in packs:
             assert packed.w.numel() == tic.prepack_int8_weight_numel(
-                wq, packed.plan)
+                wq, packed.rows)
             assert torch.equal(
                 tic.unpack_int8_prepacked(packed, cout, cin), wq)
-    # the first stage of a 48 -> 96 conv: taps 0..2, channel groups 0 and 1
-    wq = torch.from_numpy(rng.integers(-127, 128, (96, 9 * 48))
+    with pytest.raises(ValueError, match="card"):
+        tic.prepack_int8_weight(wq)
+
+
+@pytest.mark.parametrize("rows", [48, 96, 192, 384])
+def test_int8_wgmma_weight_stages_hold_core_matrices(rows):
+    """The wgmma path's weight order, one stage per kernel step (pass of
+    ``rows`` output channels, k32 step of input channels, tap): each tap's
+    K-major core matrices, 8 output channels x 16 input channels; where
+    Cin = 1 one stage per pass, K the nine taps padded to 32."""
+    rng = np.random.default_rng(rows)
+    cin, cout = 64, 2 * rows
+    wq = torch.from_numpy(rng.integers(-127, 128, (cout, 9 * cin))
                           .astype(np.int8))
-    packed = tic.prepack_int8_weight(wq)
-    assert packed.plan[:4] == (96, 1, 1, 3)
-    stage = packed.w[:3 * 2 * 96 * 16].reshape(3, 2, 96, 16)
-    w3 = wq.reshape(96, 9, 48)
-    for tap in range(3):
-        for grp in range(2):
-            assert torch.equal(stage[tap, grp],
-                               w3[:, tap, 16 * grp:16 * grp + 16])
-
-
-@pytest.mark.parametrize("cin,cout", [(1, 48), (48, 96), (768, 384),
-                                      (384, 768)])
-def test_int8_wgmma_plan_fits_shared_memory(cin, cout):
-    """The plan of every main-path conv shape fits one block's shared
-    memory, the narrow ones two blocks to an SM, and its ring holds at
-    least two weight stages."""
-    plan = tic.wgmma_plan(cin, cout)
-    assert plan is not None and plan.stages >= 2
-    assert cout % (plan.nbp * plan.bn) == 0
-    smem = tic.wgmma_smem_bytes(cin, plan)
-    assert smem <= (tic.SMEM_TWO_CTAS if plan.bn * plan.mw <= 96
-                    else tic.SMEM_LIMIT)
-    assert tic.wgmma_plan(cin, 40) is None and tic.wgmma_plan(24, cout) is None
+    stages = tic._prepack_wgmma(wq, rows).reshape(2, 2, 9, 2, rows, 16)
+    w3 = wq.reshape(cout, 9, cin)
+    for pas in range(2):
+        for k in range(2):
+            for tap in (0, 4, 8):
+                for grp in range(2):
+                    c = 32 * k + 16 * grp
+                    assert torch.equal(stages[pas, k, tap, grp],
+                                       w3[rows * pas:rows * (pas + 1), tap,
+                                          c:c + 16])
+    w1 = torch.from_numpy(rng.integers(-127, 128, (cout, 9)).astype(np.int8))
+    st1 = tic._prepack_wgmma(w1, rows).reshape(2, 2, rows, 16)
+    for pas in range(2):
+        rows_w = w1[rows * pas:rows * (pas + 1)]
+        assert torch.equal(st1[pas, 0, :, :9], rows_w)
+        assert not st1[pas, 0, :, 9:].any() and not st1[pas, 1].any()
 
 
 def test_plain_int8_modes_equal_jax_composition():
