@@ -7,7 +7,11 @@ the library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and a stale library is never loaded.  :func:`build_all`
 starts one ``nvcc`` per source, all at once, under a file lock: processes
 that need the kernels at the same time (data-parallel ranks, test workers)
-compile each source once, the later ones finding the library built.
+compile each source once, the later ones finding the library built.  When
+every library is built, loading writes nothing and starts no compiler, so
+the kernels load from a package tree the process cannot write (a container
+image built with ``python -m att_aspp_unet_tpu_torch.ops.kernels._build``);
+a library that is missing there raises an error naming it.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -77,10 +83,24 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
     """Compile every named source that has no up-to-date library, one
     ``nvcc`` process per source running in parallel.  Returns the compiler
     log (``-Xptxas -v``: registers, shared memory, spills) per source that
-    was built."""
+    was built.  Writes nothing when every library exists; raises
+    ``RuntimeError`` naming the missing libraries and the build directory
+    when there is no ``nvcc`` or the directory cannot be written."""
+    names = list(names)
+    missing = [library_path(n).name for n in names
+               if not library_path(n).exists()]
+    if not missing:
+        return {}
     with _lock:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with open(BUILD_DIR / "kernels.lock", "w") as lock:
+        try:
+            find_nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            lock = open(BUILD_DIR / "kernels.lock", "w")
+        except (RuntimeError, OSError) as err:
+            raise RuntimeError(f"kernel libraries {', '.join(missing)} are "
+                               f"missing from {BUILD_DIR} and cannot be "
+                               f"built there: {err}") from err
+        with lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             jobs = {n: _start(n) for n in names}
             return {n: _finish(n, j) for n, j in jobs.items()
@@ -103,3 +123,38 @@ def load(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def main() -> int:
+    """Build the three kernel libraries and the host-ops library into the
+    package's build directory: a container image's build step, which needs
+    ``nvcc`` and ``g++`` but no card."""
+    from ...utils import native
+
+    ok = True
+    t0 = time.time()
+    try:
+        built = build_all()
+    except RuntimeError as err:
+        print(err, file=sys.stderr)
+        built, ok = {}, False
+    for name in built:
+        out = library_path(name)
+        # nvcc wrote the file, and the rename kept its time: its own seconds
+        print(f"built {out.name} in "
+              f"{max(out.stat().st_mtime - t0, 0.0):.1f} s")
+    t0 = time.perf_counter()
+    had_host_ops = native.library_path().exists()
+    try:
+        out = native.build()
+    except RuntimeError as err:
+        print(err, file=sys.stderr)
+        ok = False
+    else:
+        if not had_host_ops:
+            print(f"built {out.name} in {time.perf_counter() - t0:.1f} s")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

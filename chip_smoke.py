@@ -111,6 +111,15 @@ Phases (any failure exits non-zero and prints no result line):
    with ``MODEL_TAG=att_aspp`` and ``WEIGHTS`` on the 840-frame case and
    with ``MODEL_TAG`` unset and ``PLANS`` on 140 frames: the container
    contract, the subprocess's launch counts;
+13b. image: the port's container image (``Dockerfile.torch``) without
+   docker: its build context staged (less its ``.dockerignore``: no
+   ``build/``, nothing of the JAX package), its build step run there with
+   no card visible (the three kernel libraries and the host ops, timed), the
+   runtime stage's copies made read-only with the image's ``test/input`` and
+   ``test/output`` links, its ENTRYPOINT twice with its ENV and no compiler
+   to be found (``MODEL_TAG=att_aspp`` on the 840-frame case: K1 64, K2 2;
+   the default baseline on 140 frames: K2 2): the container contract, each
+   output bit-equal to ``[entry]``'s, nothing written into the image's tree;
 14. tools: ``split`` → ``leak-check`` (exit 0, then 1) of generated PNG
    pairs, ``predict`` of the val PNGs with the v1 and a seeded ``--no_att``
    model, ``eval-seg``, ``vis-errors``, ``dataset-report``, ``eval-ac`` of
@@ -2481,10 +2490,14 @@ def report():
     print("MARKS " + json.dumps(marks), flush=True)
 
 atexit.register(report)
-sys.argv = ["inference"]
-runpy.run_module("att_aspp_unet_tpu_torch.inference", run_name="__main__",
-                 alter_sys=True)
+module = sys.argv[1]
+sys.argv = [module]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
 """
+ENTRY_MODULE = "att_aspp_unet_tpu_torch.inference"
+# the variables of the entry point's environment; a run sets its own
+ENTRY_ENV = ("MODEL_TAG", "WEIGHTS", "PLANS", "DATASET_JSON", "CASE_ID",
+             "DEVICE")
 
 
 def write_case_tree(root: Path, name: str, vol, compressed=False) -> Path:
@@ -2674,57 +2687,74 @@ def phase_compat(dev, case, sweeps, variables, tmp):
     return totals
 
 
+def run_entry(where: str, module: str, cwd: Path, env, expect):
+    """``python -m <module>`` in a subprocess through ``ENTRY_LAUNCHER``:
+    its launches held to ``expect`` = (K1, K2), its wall split by the
+    launcher's time stamps; returns (launches, wall seconds, stderr)."""
+    t0, spawned = time.perf_counter(), time.time()
+    res = subprocess.run([sys.executable, "-c", ENTRY_LAUNCHER, module],
+                         cwd=cwd, env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"{where}: rc {res.returncode}\n"
+                             f"{res.stderr[-3000:]}")
+    counts = json.loads(res.stdout.split("LAUNCHES ")[-1].splitlines()[0])
+    marks = json.loads(res.stdout.split("MARKS ")[-1].splitlines()[0])
+    # seconds from the spawn to each mark, and each stage's share
+    at = {k: v - spawned for k, v in marks.items()}
+    stages = {"interpreter start": at["start"],
+              "torch import": at["torch_imported"] - at["start"],
+              "CUDA context": at["device_ready"] - at["torch_imported"],
+              "port import + weights + engine": (
+                  at["engine_built"] - at["device_ready"]),
+              "read, serve, write, dumps": at["end"] - at["engine_built"],
+              "exit": wall - at["end"]}
+    log(f"[{where.split()[0]}] {where.split(' ', 1)[1]}: wall split (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    got = hold_launches(where, {"fused_double_cbr": counts[0],
+                                "clahe_interp": counts[1]}, expect)
+    return got, wall, res.stderr
+
+
+def entry_runs(case, sweeps):
+    """(tag, volume, CASE_ID, launches (K1, K2), frames the pick may name)
+    of the entry point's two runs: ``att_aspp`` on the 840-frame case (the
+    ROI path on 128 subsampled frames; the debug frames' enhancement is a
+    second CLAHE launch) and the baseline on the 140-frame sweep."""
+    import numpy as np
+
+    n = case.shape[0]
+    return [("att_aspp", case, "case-840",
+             (forward_launches(min(128, n), 16), 2),
+             np.linspace(0, n - 1, min(128, n)).astype(int).tolist()),
+            ("baseline", sweeps[0], "sweep-0", (0, 2),
+             list(range(sweeps[0].shape[0])))]
+
+
 def phase_entry(dev, case, sweeps, tmp):
     """``python -m att_aspp_unet_tpu_torch.inference`` in a subprocess
     (through a launcher that runs the module as ``-m`` does and prints the
     launch counters at exit): ``MODEL_TAG=att_aspp`` with ``WEIGHTS`` on the
     840-frame case, then ``MODEL_TAG`` unset with ``PLANS`` on 140 frames;
-    the container contract on both."""
-    import numpy as np
-
+    the container contract on both.  The outputs stay in
+    ``tmp/entry_<tag>/test/output`` for ``[image]``."""
     totals = new_totals()
-    n = case.shape[0]
-    # the entry point writes the debug frames (their enhancement is a second
-    # CLAHE launch) and dumps the probabilities, as the container does
-    runs = [("att_aspp", case, "case-840",
-             {"MODEL_TAG": "att_aspp", "WEIGHTS": str(REPO / MAIN_WEIGHTS)},
-             (forward_launches(min(128, n), 16), 2),
-             np.linspace(0, n - 1, min(128, n)).astype(int).tolist()),
-            ("baseline", sweeps[0], "sweep-0",
-             {"PLANS": str(REPO / PLAN_DIR / "plans.json"),
-              "DATASET_JSON": str(REPO / PLAN_DIR / "dataset.json")},
-             (0, 2), list(range(sweeps[0].shape[0])))]
-    for tag, vol, case_id, extra, expect, frames in runs:
+    extras = {"att_aspp": {"MODEL_TAG": "att_aspp",
+                           "WEIGHTS": str(REPO / MAIN_WEIGHTS)},
+              "baseline": {"PLANS": str(REPO / PLAN_DIR / "plans.json"),
+                           "DATASET_JSON": str(REPO / PLAN_DIR /
+                                               "dataset.json")}}
+    # the entry point writes the debug frames and dumps the probabilities,
+    # as the container does
+    for tag, vol, case_id, expect, frames in entry_runs(case, sweeps):
         cwd = tmp / f"entry_{tag}"
         write_case_tree(cwd / "test/input", "case", vol)
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("MODEL_TAG", "WEIGHTS", "PLANS", "DATASET_JSON",
-                            "CASE_ID", "DEVICE")}
-        env.update(extra, CASE_ID=case_id, DEVICE=dev, PYTHONPATH=str(REPO))
-        t0, spawned = time.perf_counter(), time.time()
-        res = subprocess.run([sys.executable, "-c", ENTRY_LAUNCHER], cwd=cwd,
-                             env=env, capture_output=True, text=True,
-                             timeout=600)
-        wall = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise AssertionError(f"entry {tag}: rc {res.returncode}\n"
-                                 f"{res.stderr[-3000:]}")
-        counts = json.loads(res.stdout.split("LAUNCHES ")[-1].splitlines()[0])
-        marks = json.loads(res.stdout.split("MARKS ")[-1].splitlines()[0])
-        # seconds from the spawn to each mark, and each stage's share
-        at = {k: v - spawned for k, v in marks.items()}
-        stages = {"interpreter start": at["start"],
-                  "torch import": at["torch_imported"] - at["start"],
-                  "CUDA context": at["device_ready"] - at["torch_imported"],
-                  "port import + weights + engine": (
-                      at["engine_built"] - at["device_ready"]),
-                  "read, serve, write, dumps": at["end"] - at["engine_built"],
-                  "exit": wall - at["end"]}
-        log(f"[entry] {tag}: wall split (s) " + ", ".join(
-            f"{k} {v:.3f}" for k, v in stages.items()))
-        got = hold_launches(f"entry {tag}", {"fused_double_cbr": counts[0],
-                                             "clahe_interp": counts[1]},
-                            expect)
+        env = {k: v for k, v in os.environ.items() if k not in ENTRY_ENV}
+        env.update(extras[tag], CASE_ID=case_id, DEVICE=dev,
+                   PYTHONPATH=str(REPO))
+        got, wall, _ = run_entry(f"entry {tag}", ENTRY_MODULE, cwd, env,
+                                 expect)
         for k, v in got.items():
             totals[k] += v
         frame, px = check_container_contract(
@@ -2734,6 +2764,297 @@ def phase_entry(dev, case, sweeps, tmp):
             f": {wall:.2f} s wall for {vol.shape[0]} frames (process start, "
             f"model build, read, serve, write, probability dump {dumps}, "
             f"debug frames); frame {frame}, {px} mask pixels; launches {got}")
+    return totals
+
+
+DOCKERFILE = "Dockerfile.torch"
+# what of the repository stays out of the port's image: the JAX package,
+# its native library, its entry point, bench and the tests
+NOT_IN_IMAGE = ("att_aspp_unet_tpu", "native", "inference.py", "bench.py",
+                "tests")
+
+
+def parse_dockerfile(path: Path):
+    """The stages of a Dockerfile, each a dict: ``name`` (``AS``), ``base``,
+    ``copy`` (list of (``--from`` stage or None, sources, destination)),
+    ``run`` (shell commands), ``env`` (list of (key, value) in order),
+    ``workdir`` and ``entrypoint`` (the exec form's list)."""
+    import re
+    import shlex
+
+    stages = []
+    for line in re.sub(r"\\\n", " ", path.read_text()).splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        op, _, rest = line.partition(" ")
+        op, rest = op.upper(), rest.strip()
+        if op == "FROM":
+            words = rest.split()
+            stages.append({"name": words[2] if len(words) == 3 else None,
+                           "base": words[0], "copy": [], "run": [],
+                           "env": [], "workdir": "/", "entrypoint": None})
+        elif op == "COPY":
+            words = shlex.split(rest)
+            flags = dict(w[2:].partition("=")[::2] for w in words
+                         if w.startswith("--"))
+            paths = [w for w in words if not w.startswith("--")]
+            stages[-1]["copy"].append((flags.get("from"), paths[:-1],
+                                       paths[-1]))
+        elif op == "RUN":
+            stages[-1]["run"].append(rest)
+        elif op == "ENV":
+            stages[-1]["env"] += [w.partition("=")[::2]
+                                  for w in shlex.split(rest)]
+        elif op == "WORKDIR":
+            stages[-1]["workdir"] = rest
+        elif op == "ENTRYPOINT":
+            stages[-1]["entrypoint"] = json.loads(rest)
+    return stages
+
+
+def dockerignore_patterns(path: Path):
+    """The patterns of a ``.dockerignore`` file; its ``!`` exceptions are
+    refused (the port's has none, and :func:`dockerignored` reads none)."""
+    pats = [line.strip() for line in path.read_text().splitlines()
+            if line.strip() and not line.strip().startswith("#")]
+    if any(p.startswith("!") for p in pats):
+        raise ValueError(f"{path}: '!' exceptions are not supported")
+    return pats
+
+
+def dockerignored(rel: str, patterns) -> bool:
+    """Whether the build-context path ``rel`` (relative, ``/``-separated)
+    is left out by one of ``patterns`` or lies in a directory that is, as
+    Docker matches them: ``**`` spans any number of directories, ``*`` and
+    ``?`` never a ``/``, and a trailing ``/`` is dropped."""
+    import re
+
+    def regex(pat):
+        out, i, pat = "", 0, pat.strip("/")
+        while i < len(pat):
+            if pat.startswith("**/", i):
+                out, i = out + "(?:.*/)?", i + 3
+            elif pat.startswith("**", i):
+                out, i = out + ".*", i + 2
+            else:
+                out += {"*": "[^/]*", "?": "[^/]"}.get(pat[i],
+                                                       re.escape(pat[i]))
+                i += 1
+        return re.compile(out)
+
+    parts = rel.strip("/").split("/")
+    prefixes = ["/".join(parts[:k]) for k in range(1, len(parts) + 1)]
+    return any(regex(p).fullmatch(q) for p in patterns for q in prefixes)
+
+
+def stage_context(stage, root: Path, patterns):
+    """Copy the build-context sources of ``stage``'s COPY instructions
+    under ``root`` (the stage's filesystem), leaving out what ``patterns``
+    leave out."""
+    import shutil
+
+    for frm, srcs, dst in stage["copy"]:
+        if frm is not None:
+            raise ValueError(f"{DOCKERFILE}: the builder copies from {frm}")
+        for src in srcs:
+            def ignore(d, names, src=src):
+                rel = Path(d).relative_to(REPO).as_posix()
+                return [n for n in names if dockerignored(f"{rel}/{n}",
+                                                          patterns)]
+
+            if dockerignored(src, patterns):
+                continue
+            target = root / dst.lstrip("/")
+            if (REPO / src).is_dir():
+                shutil.copytree(REPO / src, target, ignore=ignore)
+            else:
+                target.parent.mkdir(parents=True, exist_ok=True)
+                shutil.copy2(REPO / src, target)
+
+
+def tree_paths(roots):
+    """``roots`` and every file and directory under them."""
+    return [q for p in roots for q in [p, *p.rglob("*")]]
+
+
+def tree_state(roots):
+    """Every path under ``roots`` with its size and mtime."""
+    return {str(q): (q.stat().st_size, q.stat().st_mtime_ns)
+            for q in tree_paths(roots)}
+
+
+def phase_image(dev, case, sweeps, tmp):
+    """The port's container image (``Dockerfile.torch``) built and run the
+    way docker would, without docker: (a) the builder stage's COPY sources
+    staged under a temporary root, less what ``Dockerfile.torch.dockerignore``
+    leaves out (no ``build/``, nothing of the JAX package); (b) its build
+    step run there with no card visible: it builds the three kernel
+    libraries and the host-ops library; (c) the runtime stage's copies from
+    the builder, made read-only, with the image's ``test/`` symlinks to
+    ``/input`` and ``/output``; (d) its ENTRYPOINT twice, with the runtime
+    stage's ENV, ``PYTHONPATH`` the image's working directory and no
+    compiler to be found: ``MODEL_TAG=att_aspp`` with the staged weights on
+    the 840-frame case (K1 64, K2 2) and ``MODEL_TAG`` unset, the image's
+    default baseline, on the 140-frame sweep (K2 2); (e) the container
+    contract, each run's volume and frame bit-equal to ``[entry]``'s (same
+    code, weights and card), and the staged package and resources
+    unchanged: nothing was built or written there."""
+    import re
+    import shlex
+    import shutil
+
+    import numpy as np
+
+    from att_aspp_unet_tpu_torch.io import read_json, read_mha
+    from att_aspp_unet_tpu_torch.ops.kernels import _build
+    from att_aspp_unet_tpu_torch.utils import native
+
+    stages = parse_dockerfile(REPO / DOCKERFILE)
+    builder = next(st for st in stages if st["name"] == "builder")
+    runtime = stages[-1]
+    patterns = dockerignore_patterns(REPO / f"{DOCKERFILE}.dockerignore")
+    broot, iroot = tmp / "image_builder", tmp / "image"
+
+    def expand(env, pairs):
+        for k, v in pairs:
+            env[k] = re.sub(r"\$\{(\w+)\}", lambda m: env.get(m[1], ""), v)
+        return env
+
+    # (a) the build context
+    stage_context(builder, broot, patterns)
+    app = broot / builder["workdir"].lstrip("/")
+    staged = [q.relative_to(app).as_posix() for q in app.rglob("*")]
+    tops = sorted(q.name for q in app.iterdir())
+    bad = [q for q in staged if {"build", "__pycache__"} & set(q.split("/"))
+           or q.endswith(".pyc")] + sorted(set(tops) & set(NOT_IN_IMAGE))
+    jax = [q for q in app.rglob("*.py") if re.search(
+        r"^\s*(import|from)\s+(jax|flax|optax|att_aspp_unet_tpu)\b",
+        q.read_text(), re.M)]
+    log(f"[image] {DOCKERFILE}: builder {builder['base']}, runtime "
+        f"{runtime['base']}; staged {len(staged)} paths under "
+        f"{builder['workdir']}: {tops}")
+    if bad or jax or not staged:
+        raise AssertionError(f"image: the staged context holds {bad[:5]} "
+                             f"{jax[:5]}")
+
+    # (b) the build step, with no card visible
+    step = next(r for r in builder["run"] if "ops.kernels._build" in r)
+    argv = shlex.split(step)
+    if argv[0] != "python":
+        raise AssertionError(f"image: unexpected build step {step!r}")
+    env = expand(dict(os.environ), builder["env"])
+    env.update(CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(app))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *argv[1:]], cwd=app, env=env,
+                         capture_output=True, text=True, timeout=600)
+    t_build = time.perf_counter() - t0
+    libs = sorted(q.name for q in (app / "att_aspp_unet_tpu_torch/build")
+                  .glob("*.so")) if res.returncode == 0 else []
+    want = sorted([_build.library_path(n).name
+                   for n in _build.KERNEL_SOURCES]
+                  + [native.library_path().name])
+    log(f"[image] build step `{step}` with CUDA_VISIBLE_DEVICES=\"\": rc "
+        f"{res.returncode}, {t_build:.2f} s wall ({nvidia_smi()}); "
+        f"{res.stdout.strip().splitlines()}")
+    if libs != want:
+        raise AssertionError(f"image: the build step made {libs}, not "
+                             f"{want}\n{res.stderr[-3000:]}")
+    # the runtime stage is CUDA's base image: no CUDA library but the
+    # driver's, which the container toolkit mounts (torch's wheel has its own)
+    needs = {lib: re.findall(r"^\s*(lib\S+)", subprocess.run(
+        ["ldd", str(app / "att_aspp_unet_tpu_torch/build" / lib)],
+        capture_output=True, text=True).stdout, re.M) for lib in libs}
+    log(f"[image] shared libraries the built ones need: {needs}")
+    if any(n.startswith(("libcudart", "libnvrtc", "libcublas"))
+           for v in needs.values() for n in v):
+        raise AssertionError("image: a built library needs a CUDA library "
+                             "that the runtime image lacks")
+
+    # (c) the runtime stage: copies from the builder, read-only
+    locked = []
+    for frm, srcs, dst in runtime["copy"]:
+        if frm != builder["name"]:
+            raise AssertionError(f"image: the runtime copies {srcs} from "
+                                 f"{frm or 'the context'}")
+        for src in srcs:
+            if not (broot / src.lstrip("/")).exists():
+                # the builder's venv: the card machine's Python stands in
+                if not any(f"venv {src}" in r for r in builder["run"]):
+                    raise AssertionError(f"image: COPY --from={frm} {src}")
+                continue
+            locked.append(iroot / dst.lstrip("/"))
+            shutil.copytree(broot / src.lstrip("/"), locked[-1],
+                            symlinks=True)
+    workdir = iroot / runtime["workdir"].lstrip("/")
+    links = [m for r in runtime["run"]
+             for m in re.findall(r"ln -s (\S+) (\S+)", r)]
+    for target, link in links:
+        (iroot / target.lstrip("/")).mkdir(parents=True, exist_ok=True)
+        (iroot / link.lstrip("/")).parent.mkdir(parents=True, exist_ok=True)
+        (iroot / link.lstrip("/")).symlink_to(iroot / target.lstrip("/"))
+    entry = runtime["entrypoint"]
+    if entry[:2] != ["python", "-m"] or len(entry) != 3 or len(links) != 2:
+        raise AssertionError(f"image: ENTRYPOINT {entry}, links {links}")
+
+    # (d) the ENTRYPOINT, twice; no compiler is to be found, as in the image
+    env = {k: v for k, v in os.environ.items() if k not in ENTRY_ENV}
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if not (Path(d) / "nvcc").exists())
+    env = expand(env, runtime["env"])
+    env.update(PYTHONPATH=str(workdir), CUDA_HOME=str(iroot / "no-cuda"),
+               CXX=str(iroot / "no-cxx"))
+    if dev != "cuda":
+        env["DEVICE"] = dev     # a rehearsal on the CPU; the image's: cuda
+    extras = {"att_aspp": {"MODEL_TAG": "att_aspp",
+                           "WEIGHTS": str(workdir / MAIN_WEIGHTS)},
+              "baseline": {}}
+    totals = new_totals()
+    try:
+        for q in tree_paths(locked):
+            q.chmod(q.stat().st_mode & ~0o222)
+        before = tree_state(locked)
+        for tag, vol, case_id, expect, frames in entry_runs(case, sweeps):
+            for target, _ in links:         # /input and /output emptied
+                for q in (iroot / target.lstrip("/")).iterdir():
+                    if q.is_dir():
+                        shutil.rmtree(q)
+                    else:
+                        q.unlink()
+            write_case_tree(workdir / "test/input", "case", vol)
+            run_env = dict(env, **extras[tag], CASE_ID=case_id)
+            got, wall, err = run_entry(f"image {tag}", entry[2], workdir,
+                                       run_env, expect)
+            for k, v in got.items():
+                totals[k] += v
+            out = workdir / "test/output"
+            frame, px = check_container_contract(out, case_id, vol.shape,
+                                                 frames, f"image {tag}")
+            ref = tmp / f"entry_{tag}/test/output"
+            seg = f"images/fetal-abdomen-segmentation/{case_id}.mha"
+            same = (read_json(out / "fetal-abdomen-frame-number.json")
+                    == read_json(ref / "fetal-abdomen-frame-number.json")
+                    and np.array_equal(read_mha(out / seg).array,
+                                       read_mha(ref / seg).array))
+            log(f"[image] MODEL_TAG="
+                f"{'att_aspp' if tag == 'att_aspp' else '(unset)'} from the "
+                f"read-only staged image: {wall:.2f} s wall for "
+                f"{vol.shape[0]} frames; frame {frame}, {px} mask pixels; "
+                f"launches {got}; volume and frame equal to [entry]'s: "
+                f"{same}")
+            if not same or "native host ops unavailable" in err:
+                raise AssertionError(f"image {tag}: differs from [entry] or "
+                                     f"ran without the host ops\n{err[-2000:]}")
+        after = tree_state(locked)
+    finally:
+        for q in tree_paths(locked):
+            q.chmod(q.stat().st_mode | 0o200)
+    changed = sorted(set(before.items()) ^ set(after.items()))
+    log(f"[image] staged package and resources: {len(before)} paths, "
+        f"{'unchanged' if not changed else f'CHANGED {changed[:5]}'}")
+    if changed:
+        raise AssertionError("image: the runs wrote into the image's tree")
     return totals
 
 
@@ -3413,6 +3734,13 @@ def phase_ddp(dev, train_set):
     return totals
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def host_library(name: str) -> str:
     """The version of a host library (without importing it), or
     "missing"."""
@@ -3456,9 +3784,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     dev = "cuda"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}; "
         + ", ".join(f"{m} {host_library(m)}"
@@ -3531,6 +3857,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         add(phase_compat(dev, case, sweeps, variables, tmp))
         add(phase_entry(dev, case, sweeps, tmp))
+        add(phase_image(dev, case, sweeps, tmp))
         add(phase_tools(dev, sweeps, [m[2] for m in made], train_sets, thr,
                         tmp))
         add(phase_native(dev, case, sweeps, variables, thr, tmp))
