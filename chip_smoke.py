@@ -147,6 +147,15 @@ Phases (any failure exits non-zero and prints no result line):
    pair and micro-batch, no K1 on a served int8 forward);
    ``--save-int8-scales NPZ`` also saves the container's calibration of the
    840-frame case there (``tests/compare_int8_roi_frame.py`` reads it);
+16b'. bench (after the native phase, before warm): the port's benchmark
+   ``att_aspp_unet_tpu_torch/bench.py`` in this process at its full default
+   sizes, the default line with ``--bulk 4``, then ``--int8``, ``--roi``,
+   ``--baseline``, ``--train`` (its ``make_sweep`` inputs made by two worker
+   processes from the baseline phase on): each printed line parsed and
+   naming the card, the direct figure's 226.8 GFLOP per frame, the kernels
+   of each path launched (K3 only under ``--int8``) and no plain version on
+   a card tensor, the cascade's frame of the case equal to the direct
+   path's and ``--int8``'s equal to bf16's;
 16c. warm (last): ``cli warm --int8`` in a subprocess on a copy of the
    package with an empty build directory (builds K1, K2, K3 and the host
    ops), then a ``predict --int8`` subprocess that builds nothing;
@@ -2178,31 +2187,6 @@ TRAIN_SET, VAL_SET = (20, 28, 4), (21, 7, 1)
 TRAIN_SIZE, TRAIN_BATCH = 512, 8
 
 
-def att_aspp_flops(base_c: int, size: int) -> float:
-    """2 x multiply-adds of one v1 Attention-ASPP-UNet forward over a
-    ``size`` x ``size`` frame: the encoder pairs, the ASPP (1x1, three 3x3
-    dilated with all nine taps, the pooled 1x1, the projection), per decoder
-    level the transposed conv, the v1 gate, the pair, and the 1x1 head."""
-    px = {lvl: (size >> (lvl - 1)) ** 2 for lvl in range(1, 6)}
-    w = {1: base_c, 2: 2 * base_c, 3: 4 * base_c, 4: 8 * base_c}
-    total, cin = 0.0, 1
-    for lvl in (1, 2, 3, 4):
-        total += 2 * 9 * (cin * w[lvl] + w[lvl] * w[lvl]) * px[lvl]
-        cin = w[lvl]
-    f = 16 * base_c
-    total += 2 * px[5] * 8 * base_c * f * (1 + 9 * 3) + 2 * 8 * base_c * f \
-        + 2 * px[5] * 5 * f * f
-    g = f
-    for lvl in (4, 3, 2, 1):
-        c = w[lvl]
-        total += 2 * px[lvl] * g * c
-        if lvl >= 2:
-            total += 2 * px[lvl] * (2 * c * (c // 2) + c // 2)
-        total += 2 * 9 * px[lvl] * 3 * c * c
-        g = c
-    return total + 2 * px[1] * base_c
-
-
 def make_train_set(seed: int, n_pos: int, n_neg: int):
     from att_aspp_unet_tpu_torch.tools.synthetic import make_dataset
 
@@ -2316,6 +2300,7 @@ def phase_train(dev, sweep, best_true, thr, tmp, train_set, val_set):
     import numpy as np
     import torch
 
+    from att_aspp_unet_tpu_torch.bench import forward_gflops
     from att_aspp_unet_tpu_torch.config import (Config, ModelConfig,
                                                 TrainConfig)
     from att_aspp_unet_tpu_torch.io import read_mha
@@ -2391,7 +2376,8 @@ def phase_train(dev, sweep, best_true, thr, tmp, train_set, val_set):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = torch.stack(metrics)[:, 0].tolist()
     step_ms = 1e3 * statistics.median(times[3:])
-    flops = 3 * att_aspp_flops(BASE_C, TRAIN_SIZE) * TRAIN_BATCH
+    gflop = forward_gflops(BASE_C, TRAIN_SIZE)
+    flops = 3 * gflop * 1e9 * TRAIN_BATCH
     log(f"[train] 20 steps, base_c {BASE_C}, {TRAIN_SIZE}^2, batch "
         f"{TRAIN_BATCH}, bf16: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
         f"(first five {np.mean(losses[:5]):.4f}, last five "
@@ -2399,7 +2385,7 @@ def phase_train(dev, sweep, best_true, thr, tmp, train_set, val_set):
         f"after 3 warm-up steps (min {1e3 * min(times[3:]):.2f}, first "
         f"{1e3 * times[0]:.1f}) = {1e3 * TRAIN_BATCH / step_ms:.1f} images/s, "
         f"{flops / step_ms / 1e9:.1f} TFLOP/s at 3 x "
-        f"{att_aspp_flops(BASE_C, TRAIN_SIZE) / 1e9:.2f} GFLOP per frame "
+        f"{gflop:.2f} GFLOP per frame "
         f"({100 * flops / step_ms / 1e-3 / PEAK_BF16_FLOPS:.1f} % of the bf16 "
         f"peak), peak memory {peak:.2f} GiB; kernel launches {launches}")
     if not np.mean(losses[-5:]) < np.mean(losses[:5]):
@@ -3734,6 +3720,115 @@ def phase_ddp(dev, train_set):
     return totals
 
 
+# the runs of the port's benchmark (att_aspp_unet_tpu_torch/bench.py): label,
+# its flags, and whether each of K1, K2, K3 runs on that path (the baseline
+# has no K1 conv + BN pair, training convolves with cuDNN)
+BENCH_RUNS = [("default", ["--bulk", "4"], (True, True, False)),
+              ("int8", ["--int8"], (True, True, True)),
+              ("roi", ["--roi"], (True, True, False)),
+              ("baseline", ["--baseline"], (False, True, False)),
+              ("train", ["--train"], (False, True, False))]
+# make_sweep inputs of the serving runs beyond chip_smoke's own six sweeps:
+# (frames, seed) of the 840-frame case and of the bulk group's four sweeps
+BENCH_SWEEPS = [(840, 1)] + [(N_FRAMES, 10 + s) for s in range(4)]
+
+
+def make_bench_sweep(n: int, seed: int, path: str) -> str:
+    """A ``make_sweep`` input of the benchmark, saved to ``path`` (.npy).  A
+    returned array would be unpickled by the pool's thread in this process
+    while a later phase runs, holding the interpreter lock for the second or
+    so that 351 MB take and stalling what that phase times."""
+    import numpy as np
+
+    from att_aspp_unet_tpu_torch.tools.synthetic import make_sweep
+
+    np.save(path, make_sweep(n, *FRAME_HW, seed=seed)[0])
+    return path
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Names of the kernels whose plain version was called on a CUDA
+    tensor while the block ran (the wrappers call their plain version
+    through the module attribute)."""
+    from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as ci
+    from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as fc
+    from att_aspp_unet_tpu_torch.ops.kernels import int8_conv as ic
+
+    calls = []
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (fc, "fused_double_cbr_reference"), (ci, "clahe_interp_reference"),
+        (ic, "int8_conv3x3_reference"))]
+
+    def counted(name, fn):
+        def call(x, *a, **kw):
+            if x.is_cuda:
+                calls.append(name)
+            return fn(x, *a, **kw)
+        return call
+
+    for m, n, fn in saved:
+        setattr(m, n, counted(n, fn))
+    try:
+        yield calls
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def phase_bench(made):
+    """The port's benchmark in this process, each run at its full default
+    size: the default line with ``--bulk 4``, ``--int8``, ``--roi``,
+    ``--baseline``, ``--train``.  ``made`` holds the ``make_sweep`` inputs
+    already made (see ``bench.synthetic_sweep``).  Each run's line printed
+    once and parsed, naming the H100, a positive value; the direct figure's
+    FLOPs per frame 226.8; each kernel of the path launched and no other,
+    no plain version called on a card tensor; the cascade's pick on the
+    case equal to the direct path's, and ``--int8``'s equal to bf16's."""
+    from att_aspp_unet_tpu_torch import bench
+
+    smi = nvidia_smi()
+    totals, lines = new_totals(), {}
+    for label, argv, runs in BENCH_RUNS:
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with plain_on_card() as plain, contextlib.redirect_stdout(out):
+            line = bench.main(argv, made)
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in _wrappers().items()}
+        printed = out.getvalue().splitlines()
+        log(f"[bench] {label} ({smi}), {wall:.1f} s: {printed[-1]}")
+        log(f"[bench] {label}: picks {line['_picks']}, kernel launches "
+            f"{got}")
+        picks = line.pop("_picks")
+        lines[label] = (line, picks)
+        if len(printed) != 1 or json.loads(printed[0]) != line:
+            raise AssertionError(f"bench {label}: printed {printed}")
+        if "H100" not in line["device"] or not line["value"] > 0:
+            raise AssertionError(f"bench {label}: {line}")
+        wrong = [k for k, run in zip(KERNELS, runs) if (got[k] > 0) != run]
+        if wrong or plain:
+            raise AssertionError(f"bench {label}: launches {got} (path "
+                                 f"runs {runs}), plain versions on the "
+                                 f"card: {sorted(set(plain))}")
+        for k, v in got.items():
+            totals[k] += v
+    for label in ("default", "int8"):
+        line, picks = lines[label]
+        if line["direct_case_gflop_per_frame"] != 226.8:
+            raise AssertionError(f"bench {label}: "
+                                 f"{line['direct_case_gflop_per_frame']}")
+        if picks["case"][0] != picks["direct"][0]:
+            raise AssertionError(f"bench {label}: the cascade picked frame "
+                                 f"{picks['case'][0]} of the case, the "
+                                 f"direct path {picks['direct'][0]}")
+    if lines["int8"][1]["case"][0] != lines["default"][1]["case"][0]:
+        raise AssertionError("bench: --int8 picked another frame of the "
+                             "case than bf16")
+    return totals
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3821,7 +3916,11 @@ def main(argv=None) -> int:
         for k, v in launches.items():
             totals[k] += v
 
-    with tempfile.TemporaryDirectory() as tmp:
+    # the benchmark's own inputs are made by two workers beside the phases
+    # from [baseline] on (after the host-paced serving figures)
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context(
+                "spawn")) as bench_pool:
         tmp = Path(tmp)
         launches, direct_engine, direct_140 = phase_slice(
             dev, sweeps[0], bests[0], made[0][2], variables, thr, tmp)
@@ -3849,6 +3948,9 @@ def main(argv=None) -> int:
         add(phase_int8(dev, sweeps, bests, variables, thr, tmp,
                        args.save_int8_scales))
         torch.cuda.empty_cache()
+        bench_inputs = {(n, *FRAME_HW, seed): bench_pool.submit(
+            make_bench_sweep, n, seed, str(tmp / f"bench_{n}_{seed}.npy"))
+            for n, seed in BENCH_SWEEPS}
         add(phase_baseline(dev, sweeps[0], case, tmp))
         torch.cuda.empty_cache()
         add(phase_train(dev, sweeps[0], bests[0], thr, tmp, *train_sets))
@@ -3861,6 +3963,14 @@ def main(argv=None) -> int:
         add(phase_tools(dev, sweeps, [m[2] for m in made], train_sets, thr,
                         tmp))
         add(phase_native(dev, case, sweeps, variables, thr, tmp))
+        t0 = time.perf_counter()
+        made = {(N_FRAMES, *FRAME_HW, SEED): sweeps[0]}
+        made.update({k: np.load(f.result())
+                     for k, f in bench_inputs.items()})
+        log(f"[bench] inputs {sorted(made)} (waited "
+            f"{time.perf_counter() - t0:.1f} s)")
+        add(phase_bench(made))
+        del made
         phase_warm(dev, thr, tmp)
     k1["launches"] = totals["fused_double_cbr"]
     k2["launches"] = totals["clahe_interp"]

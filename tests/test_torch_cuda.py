@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from att_aspp_unet_tpu_torch import bench
 from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as tci
 from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as tfc
 from att_aspp_unet_tpu_torch.ops.kernels import int8_conv as tic
@@ -611,3 +612,13 @@ def test_int8_pair_on_the_card_matches_plain(rng, cuda_device, cin, cmid,
     torch.cuda.synchronize()
     assert tic.int8_conv3x3.launches == before + 2
     assert bf16_ulps(got.cpu(), want) <= 1
+
+
+@pytest.mark.cuda
+def test_bench_quantile_of_a_sweep_on_the_card(cuda_device):
+    """The benchmark's random-weights threshold: the 0.97 quantile of a
+    140 x 562 x 744 probability field on the card (``torch.quantile`` takes
+    at most 2**24 elements)."""
+    a = np.random.default_rng(3).random(140 * 562 * 744, dtype=np.float32)
+    got = bench.quantile(torch.from_numpy(a).to(cuda_device), 0.97)
+    assert got == np.quantile(a.astype(np.float64), 0.97, method="linear")
