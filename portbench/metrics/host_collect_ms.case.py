@@ -1,0 +1,4 @@
+"""host_collect_ms.case: mean host milliseconds of a case's collect (the wait
+for its result, the one transfer, the exact re-rank, the ellipse AC)."""
+
+from portbench.readers import host_collect_ms as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""served_frames_per_s: frames of the sweeps completed inside the window over
+the seconds from its first submit to the last of those completions."""
+
+from portbench.readers import frames_per_s as read  # noqa: F401
