@@ -58,9 +58,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import math
-import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -89,6 +89,7 @@ from ..preprocess.roi import crop_roi, paste_roi_probs
 from ..utils.convert import (jax_plain_unet_to_torch, jax_variables_to_torch,
                              quant_tree)
 from ..utils.npz_weights import load_npz_variables
+from ..utils.profiling import count, span
 
 
 def forward_probs_tta(model, x: torch.Tensor, hflip: bool = True
@@ -188,10 +189,6 @@ def scout_micro_batch(n: int, requested: int, frame_batch: int) -> int:
     return max(1, min(b, max(n, 1)))
 
 
-def _no_mark(stage: Optional[str] = None) -> None:
-    pass
-
-
 # A device half is a list of steps ``(fn, fixed)``: ``fn`` maps the previous
 # step's result to its own, ``fixed`` says that it runs fixed-point loops.
 Step = Tuple[Callable, bool]
@@ -212,7 +209,6 @@ def cascade_steps(model, n_valid: int, *, img_size: int, low_size: int,
                   scout_model=None, scout_thr: float = 0.0,
                   scout_clip: Optional[float] = None,
                   scout_rank: str = "refined",
-                  mark: Callable = _no_mark,
                   devices: Optional[List[torch.device]] = None
                   ) -> List[Step]:
     """Two-tier cascade over an (S, N, H, W) stack of S independent
@@ -265,72 +261,74 @@ def cascade_steps(model, n_valid: int, *, img_size: int, low_size: int,
         """Tier 1: the low-resolution forward over every frame, per shard."""
         S, N, H, W = sweeps.shape
         flat = sweeps.reshape(S * N, H, W)
-        mark()
         srcs, xs = [], []
-        for part in mesh.split_frames(flat, devices or [flat.device], sb):
-            if lowres_enhance:
-                srcs.append(part)
-                lo_u8 = enhance_frames(
-                    resize_bilinear(part.to(torch.float32),
-                                    (low_size, low_size)),
-                    scout_clip, clahe_grid, median_kernel)
-                xs.append(lo_u8.to(torch.float32) / 255.0)
-            else:
-                srcs.append(enhance_frames(part, clahe_clip, clahe_grid,
-                                           median_kernel).to(torch.float32))
-                xs.append(resize_bilinear(srcs[-1], (low_size, low_size))
-                          / 255.0)
-        mark("scout_preprocess")
-        binaries = [_threshold(predict_sweep_probs(
-            _replica(scout_model, x.device), x, sb, hflip=False), scout_thr)
-            for x in xs]
-        mark("scout_forward")
+        with span("scout_preprocess"):
+            for part in mesh.split_frames(flat, devices or [flat.device], sb):
+                if lowres_enhance:
+                    srcs.append(part)
+                    lo_u8 = enhance_frames(
+                        resize_bilinear(part.to(torch.float32),
+                                        (low_size, low_size)),
+                        scout_clip, clahe_grid, median_kernel)
+                    xs.append(lo_u8.to(torch.float32) / 255.0)
+                else:
+                    srcs.append(enhance_frames(
+                        part, clahe_clip, clahe_grid,
+                        median_kernel).to(torch.float32))
+                    xs.append(resize_bilinear(srcs[-1], (low_size, low_size))
+                              / 255.0)
+        with span("scout_forward"):
+            binaries = [_threshold(predict_sweep_probs(
+                _replica(scout_model, x.device), x, sb, hflip=False),
+                scout_thr) for x in xs]
         return srcs, (S, N), binaries
 
     def promote(state):
         srcs, (S, N), binaries = state
-        areas_lo = mesh.gather([candidate_rank_areas(
-            b, close_kernel, fill_proxy=(scout_rank != "closed"))
-            for b in binaries], srcs[0].device).reshape(S, N)
-        scout_idx = rank_order(areas_lo, None, n_valid)[:, :n_scout]
-        mark("scout_rank")
-        return srcs, scout_idx
+        with span("scout_rank"):
+            areas_lo = mesh.gather([candidate_rank_areas(
+                b, close_kernel, fill_proxy=(scout_rank != "closed"))
+                for b in binaries], srcs[0].device).reshape(S, N)
+            return srcs, rank_order(areas_lo, None, n_valid)[:, :n_scout]
 
     def tier2(state):
         """Tier 2: the full-resolution forward on the promoted frames."""
         srcs, scout_idx = state
         S, (H, W) = scout_idx.shape[0], srcs[0].shape[-2:]
         N = sum(s.shape[0] for s in srcs) // S
-        flat_idx = (torch.arange(S, device=scout_idx.device)[:, None] * N
-                    + scout_idx).reshape(-1)
-        xf_hi = _take_frames(srcs, flat_idx)
-        if lowres_enhance:
-            xf_hi = enhance_frames(xf_hi, clahe_clip, clahe_grid,
-                                   median_kernel).to(torch.float32)
-        x_hi = resize_bilinear(xf_hi, (img_size, img_size)) / 255.0
-        mark("preprocess")
-        probs_hi = [predict_sweep_probs(_replica(model, x.device), x, batch,
-                                        tta)
-                    for x in mesh.split_frames(
-                        x_hi, devices or [x_hi.device], batch)]
-        mark("forward")
-        return scout_idx, mesh.gather([_threshold(gaussian_blur(
-            resize_bilinear(p, (H, W)), gauss_k, 0.0), threshold)
-            for p in probs_hi], x_hi.device)
+        with span("preprocess"):
+            flat_idx = (torch.arange(S, device=scout_idx.device)[:, None] * N
+                        + scout_idx).reshape(-1)
+            xf_hi = _take_frames(srcs, flat_idx)
+            if lowres_enhance:
+                xf_hi = enhance_frames(xf_hi, clahe_clip, clahe_grid,
+                                       median_kernel).to(torch.float32)
+            x_hi = resize_bilinear(xf_hi, (img_size, img_size)) / 255.0
+        with span("forward"):
+            probs_hi = [predict_sweep_probs(_replica(model, x.device), x,
+                                            batch, tta)
+                        for x in mesh.split_frames(
+                            x_hi, devices or [x_hi.device], batch)]
+            return scout_idx, mesh.gather([_threshold(gaussian_blur(
+                resize_bilinear(p, (H, W)), gauss_k, 0.0), threshold)
+                for p in probs_hi], x_hi.device)
 
     def select(state):
         scout_idx, binary = state
         S, (H, W) = scout_idx.shape[0], binary.shape[-2:]
-        areas = candidate_rank_areas(binary, close_kernel).reshape(S, n_scout)
-        # ties prefer the higher original frame index, as in the direct path
-        local = rank_order(areas, scout_idx, n_valid)[:, :n_cand]
-        cand_idx = scout_idx.gather(1, local)
-        cand = binary.reshape(S, n_scout, H, W).gather(
-            1, local[:, :, None, None].expand(S, n_cand, H, W))
-        refined = refine_mask_true_size(cand.reshape(S * n_cand, H, W),
-                                        min_area_px, min_area_frac,
-                                        close_kernel)
-        return cand_idx, refined.reshape(S, n_cand, H, W)
+        with span("select"):
+            areas = candidate_rank_areas(binary, close_kernel) \
+                .reshape(S, n_scout)
+            # ties prefer the higher original frame index, as in the direct
+            # path
+            local = rank_order(areas, scout_idx, n_valid)[:, :n_cand]
+            cand_idx = scout_idx.gather(1, local)
+            cand = binary.reshape(S, n_scout, H, W).gather(
+                1, local[:, :, None, None].expand(S, n_cand, H, W))
+            refined = refine_mask_true_size(cand.reshape(S * n_cand, H, W),
+                                            min_area_px, min_area_frac,
+                                            close_kernel)
+            return cand_idx, refined.reshape(S, n_cand, H, W)
 
     return [(scout, False), (promote, True), (tier2, False), (select, True)]
 
@@ -399,18 +397,16 @@ class AttAsppEngine:
     ``quant`` collection gives the activation scales; without one they are
     calibrated on the first sweep (:meth:`_ensure_quant`).
 
-    ``stage_times``: when a dict, every case adds its seconds per stage to it
-    ("preprocess", "forward", "postprocess"; the cascade adds
-    "scout_preprocess", "scout_forward", "scout_rank" before them),
-    synchronising the devices at each stage boundary (so that shards on
-    several devices then run one after another); None records nothing and
-    adds no sync.
+    Under a ``torch.profiler`` session each request leaves the spans of
+    ``utils/profiling.py``: ``submit`` (with ``upload``, the cascade's
+    ``scout_preprocess``, ``scout_forward`` and ``scout_rank``, then
+    ``preprocess``, ``forward`` and ``select``) and ``collect`` (with
+    ``transfer``, ``repeat`` where a step is repeated exactly, and
+    ``finish``), both carrying the request's sequence number.
     """
 
     def __init__(self, cfg: Config, variables: Optional[dict] = None,
-                 device="cuda", model=None,
-                 stage_times: Optional[Dict[str, float]] = None,
-                 devices=None):
+                 device="cuda", model=None, devices=None):
         self.cfg = cfg
         self.device, self.devices = _resolve(device, devices)
         self.variables = variables
@@ -427,12 +423,11 @@ class AttAsppEngine:
                 model = jax_variables_to_torch(variables, cfg.model,
                                                device=self.device)
         self._set_model(model)
-        self.stage_times = stage_times
         # on a card the submit halves run their fixed points speculatively,
         # so that the host never waits for the device there
         self.speculate = self.device.type == "cuda"
         self.exact_repeats = 0       # collects that had to repeat some steps
-        self._t = 0.0
+        self._requests = itertools.count()     # sequence numbers of submits
         self._init_scout(cfg)
 
     def _init_scout(self, cfg: Config) -> None:
@@ -537,23 +532,11 @@ class AttAsppEngine:
         return {**{k: v for k, v in self.variables.items() if k != "quant"},
                 "quant": quant_tree(self.model)}
 
-    def _mark(self, stage: Optional[str] = None) -> None:
-        """End ``stage`` now (None starts the clock)."""
-        if self.stage_times is None:
-            return
-        for dev in set(self.devices):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        if stage is not None:
-            self.stage_times[stage] = (self.stage_times.get(stage, 0.0)
-                                       + now - self._t)
-        self._t = now
-
     def _to_device(self, sweep) -> torch.Tensor:
-        if isinstance(sweep, torch.Tensor):
-            return sweep.to(self.device)
-        return torch.as_tensor(np.asarray(sweep)).to(self.device)
+        with span("upload"):
+            if isinstance(sweep, torch.Tensor):
+                return sweep.to(self.device)
+            return torch.as_tensor(np.asarray(sweep)).to(self.device)
 
     # ---------------- full-frame (predict CLI) paths ----------------
 
@@ -564,21 +547,20 @@ class AttAsppEngine:
         ``tta_hflip`` defaults off in ``PredictConfig``; the predict CLI
         turns it on."""
         self._ensure_quant(sweep)
-        self._mark()
         return mesh.gather([self._full_probs(s) for s in mesh.split_frames(
             sweep, self.devices, self.cfg.predict.frame_batch)], self.device)
 
     def _full_probs(self, sweep: torch.Tensor) -> torch.Tensor:
         """:meth:`predict_full` of frames on one device, by its model."""
         p, pc = self.cfg.preprocess, self.cfg.predict
-        x = preprocess_sweep(sweep, p.img_size, p.clahe_clip, p.clahe_grid,
-                             p.median_kernel)
-        self._mark("preprocess")
-        probs = predict_sweep_probs(self.models[sweep.device], x,
-                                    pc.frame_batch, pc.tta_hflip)
-        self._mark("forward")
-        native = resize_bilinear(probs, tuple(sweep.shape[-2:]))
-        return gaussian_blur(native, pc.gaussian_kernel, 0.0)
+        with span("preprocess"):
+            x = preprocess_sweep(sweep, p.img_size, p.clahe_clip,
+                                 p.clahe_grid, p.median_kernel)
+        with span("forward"):
+            probs = predict_sweep_probs(self.models[sweep.device], x,
+                                        pc.frame_batch, pc.tta_hflip)
+            native = resize_bilinear(probs, tuple(sweep.shape[-2:]))
+            return gaussian_blur(native, pc.gaussian_kernel, 0.0)
 
     @torch.no_grad()
     def psi_sweep(self, sweep) -> np.ndarray:
@@ -645,18 +627,19 @@ class AttAsppEngine:
                                           pc.frame_batch),
             scout_model=self.scout_models, scout_thr=self._scout_thr,
             scout_clip=p.clahe_clip if self._scout_clahe else 0.0,
-            scout_rank=pc.cascade_scout_rank, mark=self._mark,
-            devices=self.devices)
+            scout_rank=pc.cascade_scout_rank, devices=self.devices)
 
     @torch.no_grad()
-    def _submit(self, steps: List[Step], state, hw: Tuple[int, int]):
+    def _submit(self, steps: List[Step], state, hw: Tuple[int, int],
+                seq: int):
         """Run the steps of a device half on ``state`` and pack the last
-        one's (cand_idx, refined) for the collect half.  With ``speculate``
+        one's (cand_idx, refined) for the collect half, in a handle that keeps
+        the request's sequence number ``seq`` last.  With ``speculate``
         the fixed points read nothing back: bit k of the packed flags says
         that the k-th step with fixed points had not settled, and the handle
         keeps that step's input on the device for the collect half."""
         if not self.speculate:
-            return _pack_result(*run_steps(steps, state)), hw, None
+            return _pack_result(*run_steps(steps, state)), hw, None, seq
         flags = torch.zeros((), dtype=torch.uint8, device=self.device)
         resume = []                  # (index of the step, its input)
         for i, (fn, fixed) in enumerate(steps):
@@ -670,21 +653,23 @@ class AttAsppEngine:
                 flags = flags | (torch.stack([u.to(self.device) for u in
                                               unsettled]).any()
                                  .to(torch.uint8) << (len(resume) - 1))
-        return _pack_result(*state, flags), hw, (steps, resume)
+        return _pack_result(*state, flags), hw, (steps, resume), seq
 
     @torch.no_grad()
     def _collect(self, handle):
         """The one device->host transfer of a handle: (cand_idx, refined).
         Where a step's fixed points had not settled, the steps from the
         first such one on run again, with the exact loops."""
-        packed, hw, redo = handle
-        cand_idx, refined, flags = _unpack_result(packed, hw)
+        packed, hw, redo, _ = handle
+        with span("transfer"):
+            cand_idx, refined, flags = _unpack_result(packed, hw)
         if flags:
             self.exact_repeats += 1
             steps, resume = redo
             first, state = resume[(flags & -flags).bit_length() - 1]
-            cand_idx, refined, _ = _unpack_result(
-                _pack_result(*run_steps(steps[first:], state)), hw)
+            with span("repeat"):
+                cand_idx, refined, _ = _unpack_result(
+                    _pack_result(*run_steps(steps[first:], state)), hw)
         return cand_idx, refined
 
     def _case_steps(self, thr: float, n: int) -> List[Step]:
@@ -699,19 +684,22 @@ class AttAsppEngine:
         m = max(1, min(pc.topk_frames + pc.refine_margin, n))
 
         def forward(sweep):
-            self._mark()
-            return [_threshold(self._full_probs(s), thr) for s in
-                    mesh.split_frames(sweep, self.devices, pc.frame_batch)]
+            with span("upload"):
+                shards = mesh.split_frames(sweep, self.devices,
+                                           pc.frame_batch)
+            return [_threshold(self._full_probs(s), thr) for s in shards]
 
         def select(binaries):
             # each device computes its shard's rank keys; the keys and the
             # candidates' masks gather on the primary device
-            areas = [candidate_rank_areas(b, pc.close_kernel)
-                     for b in binaries]
-            cand_idx = rank_candidates(mesh.gather(areas, self.device), n, m)
-            return cand_idx, refine_mask_true_size(
-                _take_frames(binaries, cand_idx), pc.min_area_px,
-                pc.min_area_frac, pc.close_kernel)
+            with span("select"):
+                areas = [candidate_rank_areas(b, pc.close_kernel)
+                         for b in binaries]
+                cand_idx = rank_candidates(mesh.gather(areas, self.device),
+                                           n, m)
+                return cand_idx, refine_mask_true_size(
+                    _take_frames(binaries, cand_idx), pc.min_area_px,
+                    pc.min_area_frac, pc.close_kernel)
 
         return [(forward, False), (select, True)]
 
@@ -724,26 +712,30 @@ class AttAsppEngine:
         pc = self.cfg.predict
         thr = pc.threshold if threshold is None else threshold
         shape = tuple(int(v) for v in np.shape(sweep))
-        self._ensure_quant(sweep)
-        return self._submit(self._case_steps(thr, shape[0]), sweep, shape[-2:])
+        seq = next(self._requests)
+        with span("submit", seq):
+            self._ensure_quant(sweep)
+            return self._submit(self._case_steps(thr, shape[0]), sweep,
+                                shape[-2:], seq)
 
     def _finish(self, cand_idx: np.ndarray, refined: np.ndarray, spacing):
         """Exact circularity re-rank of one sweep's refined candidates and
         the ellipse AC: (best_frame, mask, ac_mm)."""
-        local = select_best_frame_exact(refined, self.cfg.predict.topk_frames)
-        best_mask = refined[local]
-        ac = (self.measure(best_mask, spacing) if spacing is not None
-              else float("nan"))
-        return int(cand_idx[local]), best_mask, ac
+        with span("finish"):
+            local = select_best_frame_exact(refined,
+                                            self.cfg.predict.topk_frames)
+            best_mask = refined[local]
+            ac = (self.measure(best_mask, spacing) if spacing is not None
+                  else float("nan"))
+            return int(cand_idx[local]), best_mask, ac
 
     def predict_case_collect(self, handle,
                              spacing: Optional[Tuple[float, float]] = None):
         """Host half: the one device->host transfer of the case (candidate
         indices and refined masks together), the exact circularity re-rank
         and the ellipse AC.  Returns (best_frame, mask, ac_mm)."""
-        out = self._finish(*self._collect(handle), spacing)
-        self._mark("postprocess")
-        return out
+        with span("collect", handle[-1]):
+            return self._finish(*self._collect(handle), spacing)
 
     def predict_case(self, sweep, spacing: Optional[Tuple[float, float]] = None,
                      threshold: Optional[float] = None):
@@ -785,9 +777,11 @@ class AttAsppEngine:
             raise ValueError("predict_bulk requires PredictConfig.cascade")
         thr = pc.threshold if threshold is None else threshold
         shape = tuple(int(v) for v in np.shape(sweeps))
-        self._ensure_quant(sweeps[0])
-        return self._submit(self._bulk_steps(thr, *shape[:2]), sweeps,
-                            shape[-2:])
+        seq = next(self._requests)
+        with span("submit", seq):
+            self._ensure_quant(sweeps[0])
+            return self._submit(self._bulk_steps(thr, *shape[:2]), sweeps,
+                                shape[-2:], seq)
 
     def predict_bulk_collect(self, handle,
                              spacing: Optional[Tuple[float, float]] = None
@@ -795,11 +789,10 @@ class AttAsppEngine:
         """Host half of :meth:`predict_bulk_submit`: one device->host
         transfer, then per sweep the exact circularity re-rank and the
         ellipse AC.  Returns ``[(best_frame, mask, ac_mm), ...]``, length S."""
-        cand_idx, refined = self._collect(handle)
-        out = [self._finish(cand_idx[s], refined[s], spacing)
-               for s in range(cand_idx.shape[0])]
-        self._mark("postprocess")
-        return out
+        with span("collect", handle[-1]):
+            cand_idx, refined = self._collect(handle)
+            return [self._finish(cand_idx[s], refined[s], spacing)
+                    for s in range(cand_idx.shape[0])]
 
     def predict_bulk(self, sweeps,
                      spacing: Optional[Tuple[float, float]] = None,
@@ -823,7 +816,6 @@ class AttAsppEngine:
         idxs = np.linspace(0, n - 1, min(pc.subsample_frames, n)).astype(int)
         # calibrated on full frames at img_size, as the JAX engine does
         self._ensure_quant(sweep)
-        self._mark()
         if not isinstance(sweep, torch.Tensor):
             sweep = np.asarray(sweep)
         return mesh.gather([self._roi_probs(s) for s in mesh.split_frames(
@@ -835,10 +827,8 @@ class AttAsppEngine:
         vol = enhance_frames(frames, p.clahe_clip, p.clahe_grid,
                              p.median_kernel).to(torch.float32) / 255.0
         patches, origins = crop_roi(vol, pc.roi_size)
-        self._mark("preprocess")
         probs_roi = predict_sweep_probs(self.models[frames.device], patches,
                                         pc.frame_batch, hflip=False)
-        self._mark("forward")
         return paste_roi_probs(probs_roi, origins, tuple(vol.shape[-2:]))
 
     @torch.no_grad()
@@ -855,12 +845,11 @@ class BaselineEngine:
     ``jax_plain_unet_to_torch``.  ``devices`` as in :class:`AttAsppEngine`:
     enhancement and the sliding window run per shard, and the softmax stack
     gathers on the primary device, where the 3-D postprocess needs all of
-    it.  ``stage_times`` as in :class:`AttAsppEngine` ("preprocess",
-    "forward", "postprocess")."""
+    it.  Its spans: ``predict`` (with ``preprocess`` and ``forward``), then
+    ``postprocess``; each postprocess call is counted as
+    ``postprocess_calls``."""
 
-    def __init__(self, cfg: Config, model, device="cuda",
-                 stage_times: Optional[Dict[str, float]] = None,
-                 devices=None):
+    def __init__(self, cfg: Config, model, device="cuda", devices=None):
         self.cfg = cfg
         self.device, self.devices = _resolve(device, devices)
         if not isinstance(model, PlainConvUNet):
@@ -872,25 +861,19 @@ class BaselineEngine:
                else torch.preserve_format)
         self.model = model.to(self.device, memory_format=fmt).eval()
         self.models = _replicas(self.model, self.devices, fmt)
-        self.stage_times = stage_times
-        self._t = 0.0
-
-    _mark = AttAsppEngine._mark
 
     @torch.no_grad()
     def predict(self, sweep) -> torch.Tensor:
         """Raw (N, H, W) sweep -> (C, N, H, W) f32 softmax probabilities on
         the device: enhancement at native resolution (one CLAHE over the
         whole stack), then the tiled, mirrored forward."""
-        self._mark()
-        if not isinstance(sweep, torch.Tensor):
-            sweep = torch.as_tensor(np.asarray(sweep))
-        probs = mesh.gather([self._probs(s) for s in mesh.split_frames(
-            sweep, self.devices, self._frames_per_batch(sweep.shape[-2:]))],
-            self.device)
-        probs = probs.transpose(0, 1).contiguous()
-        self._mark("forward")
-        return probs
+        with span("predict"):
+            if not isinstance(sweep, torch.Tensor):
+                sweep = torch.as_tensor(np.asarray(sweep))
+            probs = mesh.gather([self._probs(s) for s in mesh.split_frames(
+                sweep, self.devices,
+                self._frames_per_batch(sweep.shape[-2:]))], self.device)
+            return probs.transpose(0, 1).contiguous()
 
     def _frames_per_batch(self, hw) -> int:
         """Frames from one tile micro-batch boundary to the next: shards cut
@@ -904,22 +887,23 @@ class BaselineEngine:
     def _probs(self, sweep: torch.Tensor) -> torch.Tensor:
         """(n, C, H, W) softmax of frames on one device, by its model."""
         p, pu = self.cfg.preprocess, self.cfg.plain_unet
-        x = preprocess_sweep(sweep, None, p.clahe_clip, p.clahe_grid,
-                             p.median_kernel)
-        self._mark("preprocess")
-        return sliding_window_predict(
-            self.models[sweep.device], x, tuple(pu.patch_size),
-            pu.tile_step, pu.use_gaussian, pu.use_mirroring, pu.tile_batch,
-            pu.mirror_batch)
+        with span("preprocess"):
+            x = preprocess_sweep(sweep, None, p.clahe_clip, p.clahe_grid,
+                                 p.median_kernel)
+        with span("forward"):
+            return sliding_window_predict(
+                self.models[sweep.device], x, tuple(pu.patch_size),
+                pu.tile_step, pu.use_gaussian, pu.use_mirroring,
+                pu.tile_batch, pu.mirror_batch)
 
     @torch.no_grad()
     def postprocess(self, probabilities) -> torch.Tensor:
         """(C, N, H, W) probabilities -> (N, H, W) uint8 labels: threshold
         0.5 and the largest 3-D component of classes 1 and 2."""
-        out = postprocess_softmax_stack(
-            torch.as_tensor(probabilities).to(self.device), 0.5)
-        self._mark("postprocess")
-        return out
+        count("postprocess_calls")
+        with span("postprocess"):
+            return postprocess_softmax_stack(
+                torch.as_tensor(probabilities).to(self.device), 0.5)
 
 
 def _read_json_or_empty(path: Path) -> dict:

@@ -37,6 +37,7 @@ from typing import List, Optional
 import torch
 
 from ..ops.image import bin_counts
+from ..utils.profiling import count, span
 
 INF = 2 ** 30
 # iterations a speculative loop runs; the masks of this pipeline (blobs,
@@ -116,18 +117,23 @@ def make_propagate(fg: torch.Tensor, connectivity: int, ndim: int = 2):
 
 
 def fixed_point(propagate, labels: torch.Tensor, max_iters: int):
-    if _unsettled is not None and max_iters > SPECULATIVE_ITERS:
-        for _ in range(SPECULATIVE_ITERS):
-            prev, labels = labels, propagate(labels)
-        _unsettled.append(torch.any(labels != prev))
+    """``propagate`` applied until nothing changes, at most ``max_iters``
+    times (speculatively: see :func:`speculative`).  The exact loop counts
+    each check it reads on the host as ``fixed_point_reads``."""
+    with span("fixed_point"):
+        if _unsettled is not None and max_iters > SPECULATIVE_ITERS:
+            for _ in range(SPECULATIVE_ITERS):
+                prev, labels = labels, propagate(labels)
+            _unsettled.append(torch.any(labels != prev))
+            return labels
+        for _ in range(max_iters):
+            new = propagate(labels)
+            changed = bool(torch.any(new != labels))
+            count("fixed_point_reads")
+            labels = new
+            if not changed:
+                break
         return labels
-    for _ in range(max_iters):
-        new = propagate(labels)
-        changed = bool(torch.any(new != labels))
-        labels = new
-        if not changed:
-            break
-    return labels
 
 
 def label_components(mask: torch.Tensor, connectivity: int = 8,

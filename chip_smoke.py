@@ -51,11 +51,12 @@ Phases (any failure exits non-zero and prints no result line):
    scout) on the 140-frame sweep and on an 840-frame case (six seeded sweeps
    stacked), launch counts held to what the path implies; a warm engine's
    cascade against its direct path on the same inputs (every one of the six
-   sweeps, and the stacked case), with the stage split and the host time of
-   the submit and collect halves, and the submit half once more with
-   synchronising calls set to raise; the 256-px scout that was trained with
-   CLAHE, on the 140-frame sweep; the six sweeps as a directory of cases,
-   with and without the submit halves' speculative fixed points;
+   sweeps, and the stacked case), with the program's spans of a profiled
+   call and the host time of the submit and collect halves, and the submit
+   half once more with synchronising calls set to raise; the 256-px scout
+   that was trained with CLAHE, on the 140-frame sweep; the six sweeps as a
+   directory of cases, with and without the submit halves' speculative
+   fixed points;
 5. bulk: ``predict_bulk`` on four 140-frame sweeps against four
    ``predict_case`` calls (frames and ACs equal, Dice >= 0.98);
 6. container: ``infer-container`` (``MODEL_TAG=att_aspp``) on the 840-frame
@@ -64,8 +65,10 @@ Phases (any failure exits non-zero and prints no result line):
    PlainConvUNet of the in-repo ``plans.json`` at full width, seeded
    initialisation ``BASELINE_SEED``) on the 840-frame case: the output
    contract; a warm ``BaselineEngine`` on the 140-frame sweep and the
-   840-frame case (frames/s, stage split, the forward's TFLOP/s, peak
-   memory, class shares, 3-D components); card against CPU: the forward on
+   840-frame case (frames/s, the forward's TFLOP/s, peak memory, class
+   shares, 3-D components; the ``fixed_point_reads`` counter equal to the
+   propagation iterations), the program's spans of a profiled call on the
+   sweep; card against CPU: the forward on
    2 frames, the postprocess of the 140-frame softmax stack.  K1 does not
    run on this path;
 8. variants: the model variants (v2 gates with ``att_depth`` 4 and 3,
@@ -844,16 +847,39 @@ def dice(a, b) -> float:
     return 1.0 if s == 0 else 2.0 * int((a & b).sum()) / s
 
 
-def fmt_stages(times, n):
-    return ", ".join(f"{k} {v:.3f} s" for k, v in times.items()) + \
-        f"; sum {sum(times.values()):.3f} s = " \
-        f"{n / sum(times.values()):.1f} frames/s"
+def profiled(fn):
+    """``fn()`` once under ``torch.profiler`` (host and card): its result
+    and, per program span (``utils/profiling.py``) by name, [calls, host
+    seconds]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from att_aspp_unet_tpu_torch.utils.profiling import name_of
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    spans = {}
+    for ev in prof.events():
+        name = name_of(ev.name)
+        if name and getattr(ev.device_type, "name", "") == "CPU":
+            s = spans.setdefault(name, [0, 0.0])
+            s[0] += 1
+            s[1] += (ev.time_range.end - ev.time_range.start) * 1e-6
+    return out, spans
+
+
+def fmt_spans(spans):
+    return ", ".join(f"{k} x{c} {host:.3f} s"
+                     for k, (c, host) in spans.items())
 
 
 def phase_slice(dev, sweep, best_true, truth, variables, thr, tmp):
     """The direct path: the predict CLI on the sweep, with the launch
-    counters read around it; output checks; the CPU cross-check; the stage
-    split."""
+    counters read around it; output checks; the CPU cross-check; the
+    program's spans."""
     from att_aspp_unet_tpu_torch.infer.engine import AttAsppEngine
     from att_aspp_unet_tpu_torch.io import MetaImage, write_mha
 
@@ -861,8 +887,7 @@ def phase_slice(dev, sweep, best_true, truth, variables, thr, tmp):
     n = sweep.shape[0]
 
     # warm-up on the card (first-call costs: cuDNN/cuBLAS handles, allocator)
-    times = {}
-    engine = AttAsppEngine(cfg, variables, device=dev, stage_times=times)
+    engine = AttAsppEngine(cfg, variables, device=dev)
     engine.predict_case(sweep[:16], SPACING, thr)
 
     (tmp / "in140").mkdir()
@@ -882,13 +907,14 @@ def phase_slice(dev, sweep, best_true, truth, variables, thr, tmp):
         f"abdomen frames {abdomen[0]}..{abdomen[-1]}), AC {ac} mm (analytic "
         f"ring {truth.circumference_px() * 0.28:.1f} mm at the best frame)")
 
-    # stage split on a warm engine, same sweep
-    times.clear()
+    # a warm engine, same sweep, then its spans in a profiled call
     t0 = time.perf_counter()
     f_gpu_full, _, ac_full = engine.predict_case(sweep, SPACING, thr)
     tot = time.perf_counter() - t0
-    log(f"[direct] engine stages for {n} frames: {fmt_stages(times, n)}; "
-        f"wall {tot:.3f} s = {n / tot:.1f} frames/s")
+    _, spans = profiled(lambda: engine.predict_case(sweep, SPACING, thr))
+    log(f"[direct] warm engine on {n} frames: wall {tot:.3f} s = "
+        f"{n / tot:.1f} frames/s; spans of a profiled call: "
+        f"{fmt_spans(spans)}")
     if f_gpu_full != frame:
         raise AssertionError(f"engine rerun picked {f_gpu_full}, CLI {frame}")
     if check_submit_reads_nothing(engine, sweep, thr, "direct")[0] != frame:
@@ -901,7 +927,6 @@ def phase_slice(dev, sweep, best_true, truth, variables, thr, tmp):
     f_cpu, m_cpu, ac_cpu = AttAsppEngine(cfg, variables, device="cpu") \
         .predict_case(sub, SPACING, thr)
     t_cpu = time.perf_counter() - t0
-    engine.stage_times = None
     f_gpu, m_gpu, ac_gpu = engine.predict_case(sub, SPACING, thr)
     d = dice(m_cpu, m_gpu)
     log(f"[direct] 6 frames {lo}..{lo + 5}: card frame {lo + f_gpu} AC "
@@ -914,11 +939,10 @@ def phase_slice(dev, sweep, best_true, truth, variables, thr, tmp):
 
 
 def timed_case(engine, sweep, thr):
-    """One warm ``predict_case`` in its two halves, no stage syncs: (result,
-    seconds of the submit call on the host, of the collect call, of both)."""
+    """One warm ``predict_case`` in its two halves: (result, seconds of the
+    submit call on the host, of the collect call, of both)."""
     import torch
 
-    engine.stage_times = None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handle = engine.predict_case_submit(sweep, thr)
@@ -939,7 +963,6 @@ def check_submit_reads_nothing(engine, data, thr, label, bulk=False):
     collect = (engine.predict_bulk_collect if bulk
                else engine.predict_case_collect)
     on_card = torch.as_tensor(data).to(engine.device)
-    engine.stage_times = None
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1024,10 +1047,9 @@ def phase_cascade(dev, sweeps, bests, variables, thr, tmp, direct_engine,
         check_case_output(out, label, shape, abdomen, "cascade")
 
     # warm engines on the same inputs: cascade against direct
-    times = {}
     engine = AttAsppEngine(
         main_config(cascade=True, cascade_scout_weights=scout), variables,
-        device=dev, stage_times=times)
+        device=dev)
     log(f"[cascade] scout: base_c {engine.scout_model.cfg.base_c} at "
         f"{engine._scout_img_size}^2, CLAHE {engine._scout_clahe}, "
         f"threshold {engine._scout_thr}")
@@ -1036,17 +1058,15 @@ def phase_cascade(dev, sweeps, bests, variables, thr, tmp, direct_engine,
     for label, data, direct in (("140", sweeps[0], direct_140),
                                 ("840", case, None)):
         nn = data.shape[0]
-        times.clear()
-        engine.stage_times = times
-        engine.predict_case(data, SPACING, thr)
-        log(f"[cascade] engine stages for {nn} frames: "
-            f"{fmt_stages(times, nn)}")
+        _, spans = profiled(lambda: engine.predict_case(data, SPACING, thr))
+        log(f"[cascade] spans of a profiled call on {nn} frames: "
+            f"{fmt_spans(spans)}")
         (f_c, m_c, ac_c), t_sub, t_col, t_all = timed_case(engine, data, thr)
         (f_d, _, ac_d), d_sub, d_col, d_all = timed_case(direct_engine, data,
                                                           thr)
         if direct is not None and (f_d, ac_d) != direct:
             raise AssertionError("the direct path is not repeatable")
-        log(f"[cascade] {nn} frames, warm, no stage syncs: cascade "
+        log(f"[cascade] {nn} frames, warm: cascade "
             f"{t_all:.3f} s = {nn / t_all:.1f} frames/s (submit call "
             f"{t_sub:.3f} s on the host, collect {t_col:.3f} s), frame "
             f"{f_c}, AC {ac_c:.2f} mm; direct {d_all:.3f} s = "
@@ -1135,7 +1155,6 @@ def phase_directory(sweeps, thr, tmp, direct_engine, cascade_engine):
                                 ("cascade", cascade_engine, 0),
                                 ("cascade, bulk groups of 3", cascade_engine,
                                  3)):
-        engine.stage_times = None
         secs = {True: [], False: []}
         rows = {}
         # one run to warm the files and the allocator, then the four
@@ -1172,7 +1191,6 @@ def phase_bulk(dev, sweeps, thr, engine):
 
     S = 4
     group = np.stack(sweeps[:S])
-    engine.stage_times = None
     engine.predict_bulk(group, SPACING, thr)                     # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1617,6 +1635,7 @@ def phase_baseline(dev, sweep, case, tmp):
         postprocess_softmax_stack
     from att_aspp_unet_tpu_torch.tools.probe_baseline import (
         count_iterations, thresholded_labels)
+    from att_aspp_unet_tpu_torch.utils.profiling import counts
 
     n = case.shape[0]
     cfg = baseline_config()
@@ -1658,30 +1677,37 @@ def phase_baseline(dev, sweep, case, tmp):
                              "contract")
     totals = dict(launches)
 
-    # a warm engine: frames/s, stage split, TFLOP/s, peak memory
+    # a warm engine: frames/s, the forward's TFLOP/s, peak memory; the
+    # spans of a profiled call on the sweep
     tiles = len(compute_tile_starts(case.shape[1], pu.patch_size[0],
                                     pu.tile_step)) * \
         len(compute_tile_starts(case.shape[2], pu.patch_size[1],
                                 pu.tile_step))
     frame_flops = tiles * (4 if pu.use_mirroring else 1) * plain_unet_flops(pu)
-    times = {}
     engine = BaselineEngine(
-        cfg, PlainConvUNet.from_config(pu, seed=BASELINE_SEED), device=dev,
-        stage_times=times)
+        cfg, PlainConvUNet.from_config(pu, seed=BASELINE_SEED), device=dev)
     engine.postprocess(engine.predict(sweep[:8]))                # warm-up
     kept = {}
     for label, data in (("140", sweep), ("840", case)):
         nn = data.shape[0]
-        times.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
+        reads = counts().get("fixed_point_reads", 0)
         with count_iterations() as iters:
             t0 = time.perf_counter()
             probs = engine.predict(data)
+            # the postprocess waits for the forward at its first read anyway
+            torch.cuda.synchronize()
+            fwd = time.perf_counter() - t0
             seg = engine.postprocess(probs)
             _, f = select_labeled_mask_and_frame(seg)
             t = time.perf_counter() - t0
+        if counts()["fixed_point_reads"] - reads != sum(iters):
+            raise AssertionError(
+                f"baseline {nn}: the fixed_point_reads counter moved by "
+                f"{counts()['fixed_point_reads'] - reads}, the exact loops "
+                f"ran {iters} iterations")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for k, v in read_launches(f"baseline engine {nn}", (0, 1)).items():
             totals[k] += v
@@ -1693,10 +1719,10 @@ def phase_baseline(dev, sweep, case, tmp):
             stats.append(f"class {lab}: {float(m.float().mean()):.5f} of the "
                          f"voxels, {comps} 3-D components, "
                          f"{int((seg == lab).sum())} voxels kept")
-        fwd = times["forward"]
         log(f"[baseline] warm engine, {nn} frames: {t:.3f} s = "
-            f"{nn / t:.2f} frames/s; stages {fmt_stages(times, nn)}; forward "
-            f"{frame_flops * nn / 1e12:.2f} TFLOP ({tiles} tiles x 4 mirrors "
+            f"{nn / t:.2f} frames/s; predict (enhancement and forward) "
+            f"{fwd:.3f} s, postprocess and frame pick {t - fwd:.3f} s; "
+            f"forward {frame_flops * nn / 1e12:.2f} TFLOP ({tiles} tiles x 4 mirrors "
             f"x {plain_unet_flops(pu) / 1e9:.1f} GFLOP per frame) in "
             f"{fwd:.3f} s = {frame_flops * nn / fwd / 1e12:.1f} TFLOP/s "
             f"({100 * frame_flops * nn / fwd / PEAK_BF16_FLOPS:.1f} % of the "
@@ -1710,13 +1736,15 @@ def phase_baseline(dev, sweep, case, tmp):
     if not any(kept.values()):
         raise AssertionError(f"seed {BASELINE_SEED} leaves every class "
                              "empty: the postprocess does no work")
+    _, spans = profiled(lambda: engine.postprocess(engine.predict(sweep)))
+    log(f"[baseline] spans of a profiled call on {sweep.shape[0]} frames: "
+        f"{fmt_spans(spans)}")
 
     # card against CPU: the forward on 2 frames (the card's bf16 and, TF32
     # off, f32 forwards against the CPU's f32), and the postprocess of the
     # card's 140-frame softmax stack
     lo = min(max(f140, 0), sweep.shape[0] - 2)
     sub = sweep[lo:lo + 2]
-    engine.stage_times = None
     card_bf = engine.predict(sub).cpu()
     cfg32 = baseline_config("float32")
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -1923,10 +1951,7 @@ def phase_variants(dev, sweep, best_true, thr, tmp):
             for k, v in got_l.items():
                 totals[k] += v
         rates[label] = n / min(times)
-        stages = {}
-        engine.stage_times = stages
-        engine.predict_case(sweep, SPACING, thr)
-        engine.stage_times = None
+        _, spans = profiled(lambda: engine.predict_case(sweep, SPACING, thr))
         log(f"[variants] {label}: forward on 8 frames {lo}..{lo + 7}, card vs "
             f"CPU plain ({t_cpu:.1f} s): max |logit diff| {err:.4g} of a "
             f"{span:.4g} range (tolerance 2e-2 of it), signs agree on "
@@ -1934,8 +1959,8 @@ def phase_variants(dev, sweep, best_true, thr, tmp):
             f"|diff| {psi_err} (tolerance 2e-2); warm predict_case on {n} "
             f"frames: {min(times):.3f} s / {max(times):.3f} s = "
             f"{rates[label]:.1f} frames/s (x{rates[label] / rates[VARIANTS[0][0]]:.3f}"
-            f" of {VARIANTS[0][0]}), frame {frame}; stages (synchronised) "
-            f"{fmt_stages(stages, n)}")
+            f" of {VARIANTS[0][0]}), frame {frame}; spans of a profiled "
+            f"call {fmt_spans(spans)}")
         del card, engine, got, want
         torch.cuda.empty_cache()
 
@@ -3447,7 +3472,6 @@ def phase_sharded(dev, sweep, case, variables, thr, direct_engine):
 
     cfg = main_config()
     one = direct_engine
-    one.stage_times = None
     for data in (sweep, case):
         n = label = data.shape[0]
         p_one = one.predict_full(data)
