@@ -90,6 +90,7 @@ from ..utils.convert import (jax_plain_unet_to_torch, jax_variables_to_torch,
                              quant_tree)
 from ..utils.npz_weights import load_npz_variables
 from ..utils.profiling import count, span
+from .staging import Staging
 
 
 def forward_probs_tta(model, x: torch.Tensor, hflip: bool = True
@@ -402,7 +403,10 @@ class AttAsppEngine:
     ``scout_preprocess``, ``scout_forward`` and ``scout_rank``, then
     ``preprocess``, ``forward`` and ``select``) and ``collect`` (with
     ``transfer``, ``repeat`` where a step is repeated exactly, and
-    ``finish``), both carrying the request's sequence number.
+    ``finish``), both carrying the request's sequence number.  On a card
+    ``upload`` spans the host's copy of the input into a pinned staging
+    slot; its copy to the card follows on a side stream (counters
+    ``staged_uploads`` and ``upload_slot_waits``, ``staging.py``).
     """
 
     def __init__(self, cfg: Config, variables: Optional[dict] = None,
@@ -426,6 +430,8 @@ class AttAsppEngine:
         # on a card the submit halves run their fixed points speculatively,
         # so that the host never waits for the device there
         self.speculate = self.device.type == "cuda"
+        self._staging = (Staging(self.device) if self.device.type == "cuda"
+                         else None)
         self.exact_repeats = 0       # collects that had to repeat some steps
         self._requests = itertools.count()     # sequence numbers of submits
         self._init_scout(cfg)
@@ -533,7 +539,15 @@ class AttAsppEngine:
                 "quant": quant_tree(self.model)}
 
     def _to_device(self, sweep) -> torch.Tensor:
+        """``sweep`` on the primary device.  On a card, host memory goes
+        through the pinned staging slots and the side copy stream
+        (``staging.py``): the host waits for its own copy into a slot, not
+        for the card, and the compute stream waits for the upload."""
         with span("upload"):
+            on_host = not isinstance(sweep, torch.Tensor) or \
+                sweep.device.type == "cpu"
+            if self._staging is not None and on_host:
+                return self._staging.upload(sweep)
             if isinstance(sweep, torch.Tensor):
                 return sweep.to(self.device)
             return torch.as_tensor(np.asarray(sweep)).to(self.device)

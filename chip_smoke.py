@@ -981,6 +981,75 @@ def check_submit_reads_nothing(engine, data, thr, label, bulk=False):
     return out
 
 
+def check_staged_submit(engine, data, thr, label):
+    """A submit half on a pageable host array (as a served case arrives),
+    on a warm engine, with synchronising calls set to raise: the staged
+    upload (``infer/staging.py``) must neither wait for the card nor read
+    anything back.  Its upload equals the plain ``.to(device)`` of the same
+    array, and the request's result equals the one served through the plain
+    upload, bit for bit.  Prints the staging counters, the host's staging
+    time, and the copy stream's time by CUDA events."""
+    import numpy as np
+    import torch
+
+    from att_aspp_unet_tpu_torch.utils.profiling import counts
+
+    staging = engine._staging
+    before = counts()
+    # the upload alone: host time, and by events on the copy stream the
+    # time to the last byte and the copy of the staged bytes alone
+    torch.cuda.synchronize()
+    e0, e1, e2, e3 = (torch.cuda.Event(enable_timing=True) for _ in range(4))
+    e0.record(staging.stream)
+    t0 = time.perf_counter()
+    up = engine._to_device(data)
+    t_stage = time.perf_counter() - t0
+    e1.record(staging.stream)
+    slot = staging._slots[(staging._next - 1) % len(staging._slots)]
+    again = torch.empty_like(up)
+    with torch.cuda.stream(staging.stream):
+        e2.record()
+        again.view(-1).copy_(slot[:up.numel()], non_blocking=True)
+        e3.record()
+    torch.cuda.synchronize()
+    if not torch.equal(up, torch.as_tensor(data).to(engine.device)):
+        raise AssertionError(f"[{label}] the staged upload differs from "
+                             ".to(device)")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        handle = engine.predict_case_submit(data, thr)
+        t_submit = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = engine.predict_case_collect(handle, SPACING)
+    after = counts()
+    engine._staging = None
+    try:
+        want = engine.predict_case(data, SPACING, thr)
+    finally:
+        engine._staging = staging
+    if got[0] != want[0] or got[2] != want[2] or \
+            not np.array_equal(got[1], want[1]):
+        raise AssertionError(f"[{label}] staged: frame {got[0]} AC "
+                             f"{got[2]}; plain upload: frame {want[0]} AC "
+                             f"{want[2]}")
+    delta = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("staged_uploads", "upload_slot_waits")}
+    if delta != {"staged_uploads": 2, "upload_slot_waits": 0}:
+        raise AssertionError(f"[{label}] counters {delta}: not 2 staged "
+                             "uploads without a slot wait")
+    mb = up.numel() * up.element_size() / 1e6
+    log(f"[{label}] staged upload of {mb:.1f} MB from pageable memory: "
+        f"host staging {1e3 * t_stage:.2f} ms, last byte on the card "
+        f"{e0.elapsed_time(e1):.2f} ms after the call began, the staged "
+        f"bytes' copy alone {e2.elapsed_time(e3):.2f} ms (copy stream); "
+        f"submit half with synchronising calls set to raise: returned "
+        f"after {1e3 * t_submit:.1f} ms; frame {got[0]}, AC {got[2]:.2f} mm "
+        f"equal to the plain upload's; counters {delta}")
+    return got
+
+
 def explain_disagreement(direct_engine, cascade_engine, sweep, thr, frames):
     """Tier-1 and tier-2 rank areas of ``frames``, for the record."""
     import torch
@@ -1076,6 +1145,10 @@ def phase_cascade(dev, sweeps, bests, variables, thr, tmp, direct_engine,
         if check_submit_reads_nothing(engine, data, thr,
                                       f"cascade {nn}")[0] != f_c:
             raise AssertionError("cascade: the checked submit picked "
+                                 "another frame")
+        if check_staged_submit(engine, data, thr,
+                               f"cascade {nn}")[0] != f_c:
+            raise AssertionError("cascade: the staged submit picked "
                                  "another frame")
         agree = f_c == f_d and abs(ac_c - ac_d) <= 0.1
         if not agree:
