@@ -47,7 +47,10 @@ model is ``baseline``, the nnU-Net-style PlainConvUNet: its architecture
 comes from ``--plans`` / ``--dataset-json`` (nnU-Net's ``plans.json`` and
 ``dataset.json``), its weights from an nnU-Net ``.pth`` / ``.pt`` checkpoint
 or the JAX package's flat ``.npz``; without ``--weights`` it runs on the
-initialisation of seed 0, to exercise the contract.  ``att_aspp`` needs
+initialisation of seed 0, to exercise the contract.  ``swin_unetr`` runs the
+same labeled path on the port's SwinUNETR (feature size 48, on the same
+tiles; its weights a ``.pt`` / ``.pth`` state dict with MONAI's names, or
+without ``--weights`` the initialisation of seed 0).  ``att_aspp`` needs
 ``--weights``.  ``python -m att_aspp_unet_tpu_torch.inference`` runs the same
 contract driven by the environment alone (``WEIGHTS``, ``MODEL_TAG``,
 ``PLANS``, ``DATASET_JSON``, ``CASE_ID``, ``DEVICE``).
@@ -77,6 +80,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import re
 import sys
 from pathlib import Path
 
@@ -182,6 +186,52 @@ def load_baseline(weights, cfg: Config):
                      "checkpoint or a flat .npz archive")
 
 
+def load_swin_unetr(weights, cfg: Config):
+    """The labeled path's SwinUNETR on the CPU (``cfg.swin_unetr``): from a
+    ``.pt`` / ``.pth`` state dict with MONAI's parameter names, or, without
+    weights, from the initialisation of seed 0.  Every key has to match,
+    except that the conv blocks' InstanceNorm affines may be missing
+    (MONAI's ``norm_name="instance"`` has none): they stay at 1 and 0, which
+    computes the same.  Any other missing key, or any unexpected one, is a
+    checkpoint of another network, and is refused."""
+    from .models.swin_unetr import SwinUNETR
+
+    if weights is None:
+        print("[warn] no --weights given: using random init (smoke mode)")
+        return SwinUNETR.from_config(cfg.swin_unetr, seed=0)
+    path = Path(weights)
+    if not path.exists():
+        raise SystemExit(f"weights not found: {path}")
+    if path.suffix not in (".pth", ".pt"):
+        raise SystemExit(f"--weights {path}: the swin_unetr model reads a "
+                         ".pt / .pth state dict")
+    import torch
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    model = SwinUNETR(cfg.swin_unetr)
+    res = model.load_state_dict(sd, strict=False)
+    foreign = [k for k in res.missing_keys
+               if k.startswith("swinViT.")
+               or not re.search(r"\.norm[123]\.(weight|bias)$", k)]
+    if foreign or res.unexpected_keys:
+        raise SystemExit(
+            f"--weights {path} is not a SwinUNETR state dict of this "
+            f"configuration: {len(foreign)} missing keys (e.g. "
+            f"{foreign[:3]}) and {len(res.unexpected_keys)} unexpected "
+            f"(e.g. {res.unexpected_keys[:3]})")
+    print(f"[swin_unetr] loaded with {len(res.missing_keys)} missing "
+          "InstanceNorm affine keys (left at 1 and 0)")
+    return model.eval()
+
+
+def load_labeled(tag: str, weights, cfg: Config):
+    """The model of a labeled ``MODEL_TAG`` (``baseline`` or
+    ``swin_unetr``) on the CPU."""
+    return (load_swin_unetr if tag == "swin_unetr" else load_baseline)(
+        weights, cfg)
+
+
 def cmd_predict(args) -> int:
     from .infer.predict_cli import predict_directory
 
@@ -280,7 +330,7 @@ def cmd_calibrate(args) -> int:
 
 
 def cmd_infer_container(args) -> int:
-    from .infer.container import run_from_env
+    from .infer.container import LABELED_TAGS, run_from_env
 
     cfg = _config(args, container=ContainerConfig(
                      input_path=args.input, output_path=args.output,
@@ -293,8 +343,9 @@ def cmd_infer_container(args) -> int:
             base=cfg.plain_unet))
     # the weights are read for the model that will serve, which MODEL_TAG
     # of the environment may choose over --model-tag
-    if os.getenv("MODEL_TAG", args.model_tag) == "baseline":
-        model = load_baseline(args.weights, cfg)
+    tag = os.getenv("MODEL_TAG", args.model_tag)
+    if tag in LABELED_TAGS:
+        model = load_labeled(tag, args.weights, cfg)
     elif args.weights is None:
         raise SystemExit("the att_aspp model needs --weights (a flat .npz or "
                          "a .pt / .pth state dict)")
@@ -588,11 +639,13 @@ def build_parser() -> argparse.ArgumentParser:
     ic.add_argument("--input", default="./test/input")
     ic.add_argument("--output", default="./test/output")
     ic.add_argument("--model-tag", default="baseline",
-                    choices=["baseline", "att_aspp"])
+                    choices=["baseline", "att_aspp", "swin_unetr"])
     ic.add_argument("--case-id", default="output")
     ic.add_argument("--weights",
                     help="baseline: nnU-Net .pth / .pt checkpoint or flat "
                          ".npz (default: the initialisation of seed 0); "
+                         "swin_unetr: .pt / .pth state dict (default: the "
+                         "initialisation of seed 0); "
                          "att_aspp: flat .npz or .pt / .pth (required)")
     ic.add_argument("--plans", help="nnU-Net plans.json for the baseline "
                     "model architecture")

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .config import Config
-from .infer.container import select_labeled_mask_and_frame
+from .infer.container import LABELED_TAGS, select_labeled_mask_and_frame
 from .infer.engine import AttAsppEngine, BaselineEngine, select_mask_and_frame
 from .io.volume import read_volume
 
@@ -70,9 +70,11 @@ class FetalAbdomenSegmentation:
 
     ``model_tag='att_aspp'`` → the ROI deployment path
     (``model_attention_aspp.py:33-89``); ``model_tag='baseline'`` → the
-    sliding-window PlainConvUNet path (``model.py:19-104``).  ``variables``
-    skips the checkpoint: the JAX-layout variables tree (numpy) of either
-    model, or the port's ``PlainConvUNet`` for ``baseline``.
+    sliding-window PlainConvUNet path (``model.py:19-104``);
+    ``model_tag='swin_unetr'`` → the same path with the port's SwinUNETR
+    (a ``.pt`` / ``.pth`` state dict).  ``variables`` skips the checkpoint:
+    the JAX-layout variables tree (numpy) of ``att_aspp`` or ``baseline``,
+    or the port's ``PlainConvUNet`` / ``SwinUNETR``.
     """
 
     def __init__(self, checkpoint_path: Optional[str] = "checkpoints/best_model.pth",
@@ -87,13 +89,14 @@ class FetalAbdomenSegmentation:
         if variables is None:
             if checkpoint_path is None or not Path(checkpoint_path).exists():
                 raise FileNotFoundError(f"checkpoint not found: {checkpoint_path}")
-            from .cli import load_baseline, load_variables
-            variables = (load_baseline(Path(checkpoint_path), self.cfg)
-                         if model_tag == "baseline" else
+            from .cli import load_labeled, load_variables
+            variables = (load_labeled(model_tag, Path(checkpoint_path),
+                                      self.cfg)
+                         if model_tag in LABELED_TAGS else
                          load_variables(Path(checkpoint_path), self.cfg.model))
         if model_tag == "att_aspp":
             self._engine = AttAsppEngine(self.cfg, variables, device=device)
-        elif model_tag == "baseline":
+        elif model_tag in LABELED_TAGS:
             self._engine = BaselineEngine(self.cfg, variables, device=device)
         else:
             raise ValueError(f"unknown model_tag {model_tag!r}")

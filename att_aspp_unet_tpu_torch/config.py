@@ -1,7 +1,8 @@
 """Configuration of the serving paths (direct, cascade, bulk, ROI container,
 nnU-Net baseline), of threshold calibration, of training and of the data
 parallelism over devices: the fields of ``att_aspp_unet_tpu/config.py`` that
-these paths read, with the same names and defaults."""
+these paths read, with the same names and defaults.  ``SwinUNETRConfig``, the
+labeled path's second network, has no counterpart there."""
 
 from __future__ import annotations
 
@@ -79,6 +80,29 @@ class PlainUNetConfig:
 
 
 @dataclass(frozen=True)
+class SwinUNETRConfig:
+    """Swin UNETR (Hatamizadeh et al., arXiv:2201.01266) as MONAI's
+    ``SwinUNETR(spatial_dims=2)`` builds it, the labeled path's second
+    network (``MODEL_TAG=swin_unetr``): a 2x2 patch embedding, four stages
+    of (shifted-)window attention with patch merging, the five hidden
+    states layer-normed, and a residual conv decoder with InstanceNorm and
+    LeakyReLU(0.01).  Defaults are the published widths: feature size 48,
+    depths (2, 2, 2, 2), heads (3, 6, 12, 24), window 7 (the patch 2, the
+    MLP ratio 4 and the qkv bias are the model's constants).  Its tiles are
+    the labeled path's (``PlainUNetConfig.patch_size`` and the sliding
+    window's fields after it), whose sides must be multiples of 32, the
+    network's total stride."""
+
+    in_channels: int = 1
+    num_classes: int = 3
+    feature_size: int = 48
+    depths: Tuple[int, ...] = (2, 2, 2, 2)
+    num_heads: Tuple[int, ...] = (3, 6, 12, 24)
+    window_size: int = 7
+    compute_dtype: str = "bfloat16"  # "float32" for reference-precision runs
+
+
+@dataclass(frozen=True)
 class PredictConfig:
     """Sweep prediction settings (``predict()`` of the reference CLI)."""
 
@@ -143,7 +167,7 @@ class ContainerConfig:
 
     input_path: str = "./test/input"
     output_path: str = "./test/output"
-    model_tag: str = "baseline"      # "baseline" | "att_aspp"
+    model_tag: str = "baseline"      # "baseline" | "att_aspp" | "swin_unetr"
     case_id: str = "output"
     spacing_mm: float = 0.28
     # frames of one sweep in a stacked case: the default of eval-ac's --fps,
@@ -226,6 +250,7 @@ class Config:
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     plain_unet: PlainUNetConfig = field(default_factory=PlainUNetConfig)
+    swin_unetr: SwinUNETRConfig = field(default_factory=SwinUNETRConfig)
     predict: PredictConfig = field(default_factory=PredictConfig)
     calibrate: CalibrateConfig = field(default_factory=CalibrateConfig)
     container: ContainerConfig = field(default_factory=ContainerConfig)

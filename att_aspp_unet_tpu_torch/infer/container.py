@@ -2,13 +2,15 @@
 ``infer/container.py``).
 
 - input:  ``<input>/images/stacked-fetal-ultrasound/*.mha|*.tiff`` (one case)
-- env:    ``MODEL_TAG`` = ``baseline`` | ``att_aspp``; ``CASE_ID`` names the
-          output volume
+- env:    ``MODEL_TAG`` = ``baseline`` | ``att_aspp`` | ``swin_unetr``;
+          ``CASE_ID`` names the output volume
 - output: ``<output>/images/fetal-abdomen-segmentation/<case>.mha`` and
           ``<output>/fetal-abdomen-frame-number.json``
 - ``baseline`` (the default): the nnU-Net-style PlainConvUNet over
   sliding-window tiles at native resolution, the 3-D largest component of
   each class, and the reference's class-1-then-class-2 frame ladder;
+  ``swin_unetr``: the same labeled path with the port's SwinUNETR in the
+  PlainConvUNet's place (its widths ``cfg.swin_unetr``, the same tiles);
   ``att_aspp``: the ROI path on 128 subsampled frames, with the model
   variant of ``cfg.model`` (the CLI's model flags; weights from a flat
   ``.npz`` or a reference ``.pt``);
@@ -34,6 +36,11 @@ from ..preprocess import enhance_frames
 from .engine import (AttAsppEngine, BaselineEngine, resize_mask_to,
                      select_mask_and_frame)
 from .outputs import write_segmentation_output
+
+
+# the container's models; the labeled ones run BaselineEngine
+MODEL_TAGS = ("baseline", "att_aspp", "swin_unetr")
+LABELED_TAGS = ("baseline", "swin_unetr")
 
 
 def get_image_file_path(location: Path):
@@ -87,12 +94,13 @@ def run(cfg: Config, variables, case_id: Optional[str] = None,
         save_probabilities: bool = True, debug_frames: bool = True,
         device="cuda", log=print) -> int:
     """Process the single case in ``cfg.container.input_path``.
-    ``variables``: the JAX package's variables tree as numpy for either
-    model, or the port's ``PlainConvUNet`` for ``baseline``."""
+    ``variables``: the JAX package's variables tree as numpy for
+    ``baseline`` or ``att_aspp``, the port's ``PlainConvUNet`` for
+    ``baseline``, or its ``SwinUNETR`` for ``swin_unetr``."""
     ccfg = cfg.container
-    if ccfg.model_tag not in ("baseline", "att_aspp"):
-        raise ValueError(f"MODEL_TAG={ccfg.model_tag!r}: expected 'baseline' "
-                         "or 'att_aspp'")
+    if ccfg.model_tag not in MODEL_TAGS:
+        raise ValueError(f"MODEL_TAG={ccfg.model_tag!r}: expected one of "
+                         f"{', '.join(map(repr, MODEL_TAGS))}")
     input_path = Path(ccfg.input_path)
     output_path = Path(ccfg.output_path)
     case_id = case_id or ccfg.case_id
@@ -110,8 +118,8 @@ def run(cfg: Config, variables, case_id: Optional[str] = None,
         raise ValueError(f"expected 3-D sweep, got {sweep.shape}")
     n_frames, ref_h, ref_w = sweep.shape
 
-    baseline = ccfg.model_tag == "baseline"
-    engine = (BaselineEngine if baseline else AttAsppEngine)(
+    labeled = ccfg.model_tag in LABELED_TAGS
+    engine = (BaselineEngine if labeled else AttAsppEngine)(
         cfg, variables, device=device)
     if debug_frames:
         _dump_debug_frames(cfg, sweep, output_path / "images", engine.device)
@@ -119,13 +127,13 @@ def run(cfg: Config, variables, case_id: Optional[str] = None,
     # the probability stack, its postprocess and the frame pick stay on the
     # device; only the selected mask (and, when dumping, the stack) crosses
     # to the host
-    probs = engine.predict(sweep) if baseline else engine.predict_roi(sweep)
+    probs = engine.predict(sweep) if labeled else engine.predict_roi(sweep)
     if save_probabilities:
         # relative to the working directory, as the reference does
         prob_dir = Path("output/probabilities")
         prob_dir.mkdir(parents=True, exist_ok=True)
         np.save(prob_dir / f"{sweep_path.stem}_prob.npy", probs.cpu().numpy())
-    if baseline:
+    if labeled:
         mask2d, frame = select_labeled_mask_and_frame(
             engine.postprocess(probs))
     else:

@@ -15,9 +15,10 @@ Counterpart of ``att_aspp_unet_tpu/infer/engine.py`` (``AttAsppEngine``):
   promoted frames of all sweeps sharing tier-2 micro-batches and one refine;
 - ROI (``predict_roi``): the container path — 128 linspace-subsampled frames,
   a 224 x 224 intensity-centroid crop, forward without TTA, paste back;
-- baseline (:class:`BaselineEngine`): the container's default model, an
-  nnU-Net-style PlainConvUNet over Gaussian-weighted sliding-window tiles
-  with mirror TTA, then a 3-D largest-component postprocess per class.
+- baseline (:class:`BaselineEngine`): the container's labeled path, an
+  nnU-Net-style PlainConvUNet (the default model) or a SwinUNETR over
+  Gaussian-weighted sliding-window tiles with mirror TTA, then a 3-D
+  largest-component postprocess per class.
 
 The device half runs eagerly in PyTorch; the two hand-written kernels run
 inside it (CLAHE's K2 in every enhancement, K1 for every conv pair of every
@@ -71,6 +72,7 @@ import torch.nn.functional as F
 from ..config import Config, ModelConfig
 from ..measure.ellipse import measure_ac_mm
 from ..models.plain_unet import PlainConvUNet
+from ..models.swin_unetr import SwinUNETR, check_tile
 from ..models.sliding_window import (compute_tile_starts,
                                      sliding_window_predict)
 from ..nn.quant import tree_set
@@ -851,12 +853,15 @@ class AttAsppEngine:
 
 
 class BaselineEngine:
-    """PlainConvUNet + sliding-window tiled inference (the nnU-Net-style
-    path).
+    """PlainConvUNet or SwinUNETR + sliding-window tiled inference (the
+    labeled, nnU-Net-style path).
 
-    ``model`` is the port's :class:`PlainConvUNet` (moved to ``device``) or
-    the JAX package's PlainConvUNet params tree as numpy, converted with
-    ``jax_plain_unet_to_torch``.  ``devices`` as in :class:`AttAsppEngine`:
+    ``model`` is the port's :class:`PlainConvUNet` or :class:`SwinUNETR`
+    (moved to ``device``), or the JAX package's PlainConvUNet params tree as
+    numpy, converted with ``jax_plain_unet_to_torch``.  Either network
+    takes its tile, step and batching from ``cfg.plain_unet`` (a
+    SwinUNETR's tile sides must be multiples of 32).  ``devices`` as in
+    :class:`AttAsppEngine`:
     enhancement and the sliding window run per shard, and the softmax stack
     gathers on the primary device, where the 3-D postprocess needs all of
     it.  Its spans: ``predict`` (with ``preprocess`` and ``forward``), then
@@ -866,7 +871,9 @@ class BaselineEngine:
     def __init__(self, cfg: Config, model, device="cuda", devices=None):
         self.cfg = cfg
         self.device, self.devices = _resolve(device, devices)
-        if not isinstance(model, PlainConvUNet):
+        if isinstance(model, SwinUNETR):
+            check_tile(cfg.plain_unet.patch_size)
+        elif not isinstance(model, PlainConvUNet):
             model = jax_plain_unet_to_torch(model, cfg.plain_unet)
         # on a card the conv kernels channel-last too, so that cuDNN keeps
         # every activation channel-last instead of converting around each

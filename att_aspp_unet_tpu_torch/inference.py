@@ -8,12 +8,13 @@ and writes ``./test/output/images/fetal-abdomen-segmentation/<case>.mha`` and
 ``./test/output/fetal-abdomen-frame-number.json`` (the ``ContainerConfig``
 defaults).  The environment:
 
-- ``MODEL_TAG``: ``baseline`` (default) or ``att_aspp``;
+- ``MODEL_TAG``: ``baseline`` (default), ``swin_unetr`` or ``att_aspp``;
 - ``WEIGHTS``: the checkpoint.  ``baseline`` reads an nnU-Net ``.pth`` /
   ``.pt`` or a flat ``.npz`` and without one runs on the initialisation of
-  seed 0, to exercise the contract; ``att_aspp`` reads a flat ``.npz``, a
-  checkpoint of ``cli train`` or a ``.pt`` / ``.pth`` state dict, and
-  without one exits with a message;
+  seed 0, to exercise the contract; ``swin_unetr`` reads a ``.pt`` /
+  ``.pth`` state dict, and without one runs on seed 0 likewise;
+  ``att_aspp`` reads a flat ``.npz``, a checkpoint of ``cli train`` or a
+  ``.pt`` / ``.pth`` state dict, and without one exits with a message;
 - ``PLANS`` and ``DATASET_JSON``: nnU-Net's ``plans.json`` and
   ``dataset.json`` for the baseline's architecture;
 - ``CASE_ID``: the name of the output volume (default ``output``);
@@ -30,9 +31,9 @@ from pathlib import Path
 
 
 def main() -> int:
-    from .cli import load_baseline, load_variables
+    from .cli import load_labeled, load_variables
     from .config import Config
-    from .infer.container import run_from_env
+    from .infer.container import LABELED_TAGS, run_from_env
 
     cfg = Config()
     weights = os.getenv("WEIGHTS")
@@ -44,8 +45,8 @@ def main() -> int:
         cfg = dataclasses.replace(cfg, plain_unet=load_plans_config(
             Path(plans), dataset_json=Path(ds) if ds else None,
             base=cfg.plain_unet))
-    if tag == "baseline":
-        variables = load_baseline(weights, cfg)
+    if tag in LABELED_TAGS:
+        variables = load_labeled(tag, weights, cfg)
     elif weights:
         variables = load_variables(Path(weights), cfg.model)
     else:

@@ -31,7 +31,8 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-KERNEL_SOURCES = ("fused_double_cbr", "clahe_interp", "int8_conv3x3")
+KERNEL_SOURCES = ("fused_double_cbr", "clahe_interp", "int8_conv3x3",
+                  "swin_ops")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -126,7 +127,7 @@ def check(err: int, what: str) -> None:
 
 
 def main() -> int:
-    """Build the three kernel libraries and the host-ops library into the
+    """Build the kernel libraries and the host-ops library into the
     package's build directory: a container image's build step, which needs
     ``nvcc`` and ``g++`` but no card."""
     from ...utils import native

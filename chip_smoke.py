@@ -5,6 +5,8 @@
 
     python3 chip_smoke.py --save-int8-scales out/int8_scales.npz
 
+    python3 chip_smoke.py --only swin
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. build the hand-written kernels from ``att_aspp_unet_tpu_torch/csrc``
@@ -71,6 +73,19 @@ Phases (any failure exits non-zero and prints no result line):
    sweep; card against CPU: the forward on
    2 frames, the postprocess of the 140-frame softmax stack.  K1 does not
    run on this path;
+7b. swin (after the baseline; ``--only swin`` runs it alone): Swin UNETR
+   at its published widths (feature size 48, heads 3/6/12/24, window 7)
+   from the seeded initialisation: the bf16 forward over one tile batch
+   (8 frames x 4 tiles of 448 x 576 x 4 mirror views) against the plain f32
+   reference of ``tests/torch_ref.py::SwinUNETR`` (logits relative RMS
+   under ``SWIN_RTOL``, and above it with the relative-position tables
+   zeroed; argmax equal on ``SWIN_ARGMAX``), the forward's time, peak
+   memory and device time by span (encoder, window attention, decoder),
+   the window attention's kernels as the trace names them (at least one
+   named by ``SWIN_ATTN_KERNELS``), and ``MODEL_TAG=swin_unetr`` through
+   the container on the 140-frame sweep, in this process (no JAX module
+   loaded, the engine's frame) and as ``python -m
+   att_aspp_unet_tpu_torch.inference`` with ``WEIGHTS`` a state dict;
 8. variants: the model variants (v2 gates with ``att_depth`` 4 and 3,
    ``--no_att``, ``--no_aspp``, v2 ``--no_att --no_aspp``, and v1 as the
    yardstick) at full width from the seeded init with random BN statistics:
@@ -117,7 +132,7 @@ Phases (any failure exits non-zero and prints no result line):
 13b. image: the port's container image (``Dockerfile.torch``) without
    docker: its build context staged (less its ``.dockerignore``: no
    ``build/``, nothing of the JAX package), its build step run there with
-   no card visible (the three kernel libraries and the host ops, timed), the
+   no card visible (the kernel libraries and the host ops, timed), the
    runtime stage's copies made read-only with the image's ``test/input`` and
    ``test/output`` links, its ENTRYPOINT twice with its ENV and no compiler
    to be found (``MODEL_TAG=att_aspp`` on the 840-frame case: K1 64, K2 2;
@@ -1520,7 +1535,7 @@ def phase_int8(dev, sweeps, bests, variables, thr, tmp, save_scales=None):
 
 def phase_warm(dev, thr, tmp):
     """``cli warm --int8`` in a subprocess, on a copy of the package whose
-    build directory is empty (it builds the three kernels and the host
+    build directory is empty (it builds the kernels and the host
     ops), then a ``predict --int8`` subprocess on the 140-frame sweep from
     the same copy, which must build nothing."""
     import shutil
@@ -1556,7 +1571,7 @@ def phase_warm(dev, thr, tmp):
         f"{t_warm:.2f} s wall; {lines}")
     before = built()
     libs = sorted(k for k in before if k.endswith(".so"))
-    # three kernels and the host ops (on the CPU: the host ops)
+    # the kernels and the host ops (on the CPU: the host ops)
     if len(libs) != (4 if dev == "cuda" else 1) or \
             not any(f"{N_FRAMES}x" in line for line in lines):
         raise AssertionError(f"warm: built {libs}, printed {lines}")
@@ -2816,6 +2831,217 @@ def entry_runs(case, sweeps):
              list(range(sweeps[0].shape[0])))]
 
 
+# [swin]: 8 frames of 562 x 744 are 4 tiles of 448 x 576 each, one tile batch
+# of 32 (128 tiles with the mirror views)
+SWIN_FRAMES = 8
+# the port's bf16 SwinUNETR against the plain f32 reference on those tiles:
+# the relative RMS error of the logits.  On the H100 at the published widths
+# it read 0.0427 on these tiles (argmax equal on 97.5 %) and 0.018 on
+# uniform noise; the same model with its relative-position tables zeroed
+# has to read above the limit
+SWIN_RTOL = 0.08
+SWIN_ARGMAX = 0.95
+# the kernel that computes the window attention: the port's Triton
+# ``window_attn_fwd`` (``ops/kernels/window_attn.py``), by its name prefix
+SWIN_ATTN_KERNELS = ("window_attn",)
+# the JAX side, which no port path may load
+JAX_MODULES = ("jax", "jaxlib", "flax", "att_aspp_unet_tpu")
+
+
+def phase_swin(dev, sweep, tmp):
+    """Swin UNETR at its published widths (feature size 48) from the seeded
+    initialisation: the bf16 forward over one tile batch against the plain
+    f32 reference (``tests/torch_ref.py::SwinUNETR``, TF32 off; its FLOPs
+    counted by ``FlopCounterMode`` on one tile), the window attention's
+    kernels as the trace names them (``SWIN_ATTN_KERNELS``), the forward's
+    time and its device time by span, then ``MODEL_TAG=swin_unetr`` through
+    the container on the 140-frame sweep, in this process (no JAX module
+    loaded) and as ``python -m att_aspp_unet_tpu_torch.inference`` with a
+    state dict.  K2 launches once per enhancement here (3), K1 never."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from att_aspp_unet_tpu_torch.config import (Config, ContainerConfig,
+                                                SwinUNETRConfig)
+    from att_aspp_unet_tpu_torch.infer import container
+    from att_aspp_unet_tpu_torch.infer.engine import BaselineEngine
+    from att_aspp_unet_tpu_torch.io import MetaImage, read_json, write_mha
+    from att_aspp_unet_tpu_torch.models.sliding_window import \
+        compute_tile_starts
+    from att_aspp_unet_tpu_torch.models.swin_unetr import SwinUNETR
+    from att_aspp_unet_tpu_torch.preprocess.enhance import preprocess_sweep
+    from att_aspp_unet_tpu_torch.utils.profiling import name_of
+    from torch.utils.flop_counter import FlopCounterMode
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_ref import SwinUNETR as Reference
+
+    sc = SwinUNETRConfig()
+    cfg = Config(swin_unetr=sc)
+    needles = SWIN_ATTN_KERNELS
+    model = SwinUNETR.from_config(sc, device=dev, seed=0)
+    model = model.to(memory_format=torch.channels_last)
+    p = cfg.preprocess
+    reset_launches()
+    with torch.no_grad():
+        x = preprocess_sweep(torch.as_tensor(sweep[:SWIN_FRAMES]).to(dev),
+                             None, p.clahe_clip, p.clahe_grid,
+                             p.median_kernel)
+    th, tw = cfg.plain_unet.patch_size
+    step = cfg.plain_unet.tile_step
+    tiles = torch.stack([x[f, y0:y0 + th, x0:x0 + tw]
+                         for f in range(SWIN_FRAMES)
+                         for y0 in compute_tile_starts(x.shape[1], th, step)
+                         for x0 in compute_tile_starts(x.shape[2], tw, step)])
+    tiles = tiles[:, None].float()
+    batch = torch.cat([tiles] + [torch.flip(tiles, v) for v in
+                                 ((-1,), (-2,), (-2, -1))])
+    from att_aspp_unet_tpu_torch.ops.kernels import swin_ops, window_attn
+
+    kernels = (swin_ops.layer_norm, swin_ops.instance_norm_act,
+               swin_ops.stem_convs, window_attn.window_attn)
+    before = [k.launches for k in kernels]
+    torch.cuda.reset_peak_memory_stats()
+    got = model(batch)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+    log(f"[swin] the port's kernels launched by one forward: {launched}")
+    if not all(launched.values()):
+        raise AssertionError("[swin] the forward did not go through every "
+                             f"one of the port's Swin kernels: {launched}")
+    ms = cuda_ms(lambda: model(batch), reps=3)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = Reference(sc.in_channels, sc.num_classes, sc.feature_size,
+                    sc.depths, sc.num_heads, sc.window_size).to(dev).eval()
+    ref.load_state_dict({k: v.float() if v.is_floating_point() else v
+                         for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        want = torch.cat([ref(batch[i:i + 16])
+                          for i in range(0, batch.shape[0], 16)])
+        with FlopCounterMode(display=False) as flops:
+            ref(batch[:1])
+    gflop = flops.get_total_flops() * batch.shape[0] / 1e9
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    del ref
+    err = float((got - want).norm() / want.norm())
+    agree = float((got.argmax(1) == want.argmax(1)).float().mean())
+    broken = copy.deepcopy(model)
+    with torch.no_grad():
+        for name, t in broken.named_parameters():
+            if name.endswith("relative_position_bias_table"):
+                t.zero_()
+    err_broken = float((broken(batch) - want).norm() / want.norm())
+    del broken
+    log(f"[swin] SwinUNETR feature size {sc.feature_size}, heads "
+        f"{sc.num_heads}, window {sc.window_size}, seed 0: "
+        f"{sum(t.numel() for t in model.parameters()) / 1e6:.2f} M "
+        f"parameters; bf16 on {batch.shape[0]} tiles of {th}x{tw} "
+        f"({SWIN_FRAMES} frames x {batch.shape[0] // SWIN_FRAMES // 4} tiles "
+        f"x 4 views) against the f32 reference: logits relative RMS "
+        f"{err:.5f} (limit {SWIN_RTOL}; {err_broken:.5f} with the "
+        f"relative-position tables zeroed), argmax equal on {agree:.5f} "
+        f"(limit {SWIN_ARGMAX}); "
+        f"forward {ms:.2f} ms = {gflop / ms:.1f} TFLOP/s ({gflop:.1f} "
+        f"GFLOP), peak {peak:.2f} GiB")
+    if not (err < SWIN_RTOL < err_broken and agree > SWIN_ARGMAX):
+        raise AssertionError("[swin] the bf16 SwinUNETR is not within its "
+                             "tolerance of the f32 reference")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model(batch)
+        torch.cuda.synchronize()
+    kernels, spans = {}, {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", 0)
+        if t and getattr(ev.device_type, "name", "") == "CUDA":
+            kernels[ev.key] = t / 1e3
+    for ev in prof.events():
+        name = name_of(ev.name)
+        if name:
+            spans[name] = spans.get(name, 0.0) + \
+                getattr(ev, "device_time_total", 0) / 1e3
+    attn = {k: v for k, v in kernels.items()
+            if any(n in k for n in needles)}
+    total = sum(kernels.values())
+    enc = spans.get("swin_encoder", 0.0)
+    wa = spans.get("window_attention", 0.0)
+    dec = spans.get("swin_decoder", 0.0)
+    log(f"[swin] device time of one {batch.shape[0]}-tile forward "
+        f"{total:.2f} ms: encoder {enc:.2f} ms (window attention {wa:.2f}, "
+        f"its kernels {sum(attn.values()):.2f}), decoder {dec:.2f} ms; the "
+        f"window attention's kernels (needles {list(needles)}): "
+        + "; ".join(f"{k[:120]} {v:.3f} ms" for k, v in attn.items()))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    log("[swin] top kernels: " + "; ".join(f"{k[:90]} {v:.2f} ms"
+                                           for k, v in top))
+    if not attn:
+        raise AssertionError("[swin] no kernel of the window attention "
+                             f"matched {SWIN_ATTN_KERNELS}")
+
+    n = sweep.shape[0]
+    src = tmp / "sin/images/stacked-fetal-ultrasound"
+    src.mkdir(parents=True)
+    write_mha(src / "sweep_140.mha", MetaImage(sweep, spacing=(0.28,) * 3),
+              compressed=False)
+    os.environ["MODEL_TAG"] = "swin_unetr"
+    os.environ["CASE_ID"] = "swin-140"
+    ccfg = dataclasses.replace(cfg, container=ContainerConfig(
+        input_path=str(tmp / "sin"), output_path=str(tmp / "sout")))
+    t0 = time.perf_counter()
+    rc = container.run_from_env(ccfg, model, device=dev,
+                                save_probabilities=False, debug_frames=False,
+                                log=lambda *a: None)
+    wall = time.perf_counter() - t0
+    frame = read_json(tmp / "sout/fetal-abdomen-frame-number.json")
+    loaded = sorted({m.split(".")[0] for m in sys.modules}
+                    & set(JAX_MODULES))
+    engine = BaselineEngine(cfg, model, device=dev)
+    labels = engine.postprocess(engine.predict(sweep))
+    _, want_frame = container.select_labeled_mask_and_frame(labels)
+    shares = [float((labels == c).float().mean()) for c in (1, 2)]
+    torch.save(model.state_dict(), tmp / "swin.pt")
+    # the entry's process needs the card's memory that this one holds
+    del engine, model, labels, got, want, batch, tiles, x
+    torch.cuda.empty_cache()
+    env = dict(os.environ, MODEL_TAG="swin_unetr", CASE_ID="swin-entry",
+               WEIGHTS=str(tmp / "swin.pt"), DEVICE=dev)
+    (tmp / "sentry/test").mkdir(parents=True)
+    (tmp / "sentry/test/input").symlink_to(tmp / "sin")
+    t1 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          "att_aspp_unet_tpu_torch.inference"],
+                         cwd=tmp / "sentry", env=dict(
+                             env, PYTHONPATH=str(REPO)),
+                         capture_output=True, text=True, timeout=900)
+    entry_wall = time.perf_counter() - t1
+    entry_frame = read_json(tmp / "sentry/test/output/"
+                            "fetal-abdomen-frame-number.json") \
+        if res.returncode == 0 else None
+    log(f"[swin] MODEL_TAG=swin_unetr container on {n} frames: rc {rc}, "
+        f"{wall:.2f} s, frame {frame} (engine {want_frame}), class shares "
+        f"{shares[0]:.4f} / {shares[1]:.4f}, forbidden modules loaded "
+        f"{loaded}; python -m att_aspp_unet_tpu_torch.inference with "
+        f"WEIGHTS: rc {res.returncode}, {entry_wall:.2f} s, frame "
+        f"{entry_frame}")
+    os.environ.pop("MODEL_TAG")
+    os.environ.pop("CASE_ID")
+    if not (rc == 0 and frame == want_frame == entry_frame and not loaded
+            and res.returncode == 0):
+        raise AssertionError("[swin] the container's MODEL_TAG=swin_unetr "
+                             "path failed: " + res.stderr[-2000:])
+    return read_launches("swin", (0, 3))
+
+
 def phase_entry(dev, case, sweeps, tmp):
     """``python -m att_aspp_unet_tpu_torch.inference`` in a subprocess
     (through a launcher that runs the module as ``-m`` does and prints the
@@ -2973,7 +3199,7 @@ def phase_image(dev, case, sweeps, tmp):
     way docker would, without docker: (a) the builder stage's COPY sources
     staged under a temporary root, less what ``Dockerfile.torch.dockerignore``
     leaves out (no ``build/``, nothing of the JAX package); (b) its build
-    step run there with no card visible: it builds the three kernel
+    step run there with no card visible: it builds the kernel
     libraries and the host-ops library; (c) the runtime stage's copies from
     the builder, made read-only, with the image's ``test/`` symlinks to
     ``/input`` and ``/output``; (d) its ENTRYPOINT twice, with the runtime
@@ -3962,6 +4188,9 @@ def main(argv=None) -> int:
     ap.add_argument("--save-int8-scales", default=None, metavar="NPZ",
                     help="also save the int8 container's calibrated "
                          "variables (with their quant collection) there")
+    ap.add_argument("--only", choices=["swin"], default=None,
+                    help="build the kernels and run this phase alone, on "
+                         "the first seeded sweep")
     args = ap.parse_args(argv)
     if not (REPO / "att_aspp_unet_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -3982,6 +4211,16 @@ def main(argv=None) -> int:
         + ", ".join(f"{m} {host_library(m)}"
                     for m in ("PIL", "pandas", "matplotlib", "zlib")))
     t_start = time.perf_counter()
+    if args.only == "swin":
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            launches = phase_swin(dev, make_seeded_sweep(SEED)[0], Path(tmp))
+        log(f"[done] {time.perf_counter() - t_start:.1f} s, launches "
+            f"{launches}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     # the six sweeps are generated by worker processes (numpy only) while
     # the kernels build; the kernels are timed after that, with the host's
     # cores free (busy cores delayed the launches that were timed)
@@ -4049,6 +4288,8 @@ def main(argv=None) -> int:
             make_bench_sweep, n, seed, str(tmp / f"bench_{n}_{seed}.npy"))
             for n, seed in BENCH_SWEEPS}
         add(phase_baseline(dev, sweeps[0], case, tmp))
+        torch.cuda.empty_cache()
+        add(phase_swin(dev, sweeps[0], tmp))
         torch.cuda.empty_cache()
         add(phase_train(dev, sweeps[0], bests[0], thr, tmp, *train_sets))
         torch.cuda.empty_cache()

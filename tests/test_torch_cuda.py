@@ -622,3 +622,95 @@ def test_bench_quantile_of_a_sweep_on_the_card(cuda_device):
     a = np.random.default_rng(3).random(140 * 562 * 744, dtype=np.float32)
     got = bench.quantile(torch.from_numpy(a).to(cuda_device), 0.97)
     assert got == np.quantile(a.astype(np.float64), 0.97, method="linear")
+
+
+# The Swin UNETR kernels (``ops/kernels/swin_ops.py``, ``window_attn.py``)
+# at the widths of the published model, against their plain versions.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [48, 96, 192, 384, 768, 1536])
+@pytest.mark.parametrize("residual", [False, True])
+def test_swin_layer_norm_on_the_card_matches_plain(cuda_device, C, residual):
+    from att_aspp_unet_tpu_torch.ops.kernels import swin_ops as sn
+
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    x = (torch.randn(1001, C, device=cuda_device, generator=g) * 2 + 1) \
+        .bfloat16()
+    r = torch.randn_like(x) if residual else None
+    w = (torch.randn(C, device=cuda_device, generator=g) + 1).bfloat16()
+    b = torch.randn(C, device=cuda_device, generator=g).bfloat16()
+    for args in ((w, b), (None, None)):
+        s, y = sn.layer_norm(x, *args, 1e-5, r)
+        s0, y0 = sn.layer_norm_reference(x, *args, 1e-5, r)
+        assert torch.equal(s, s0)
+        # one bf16 rounding of the output apart, at most
+        torch.testing.assert_close(y, y0, rtol=8e-3, atol=8e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,hw", [(48, (448, 576)), (96, (112, 144)),
+                                  (768, (14, 18))])
+@pytest.mark.parametrize("mode", ["act", "residual", "normed_residual"])
+def test_swin_instance_norm_on_the_card_matches_plain(cuda_device, C, hw,
+                                                      mode):
+    from att_aspp_unet_tpu_torch.models.plain_unet import InstanceNorm
+    from att_aspp_unet_tpu_torch.ops.kernels import swin_ops as sn
+
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+
+    def draw():
+        return (torch.randn(2, C, *hw, device=cuda_device, generator=g) * 3
+                + 1).bfloat16().contiguous(memory_format=torch.channels_last)
+
+    x, r = draw(), draw()
+    n1, n2 = InstanceNorm(C, device=cuda_device), \
+        InstanceNorm(C, device=cuda_device)
+    kw = {"residual": r} if mode == "residual" else \
+        {"residual": r, "residual_norm": n2} if mode == "normed_residual" \
+        else {}
+    y = sn.instance_norm_act(x, n1, 0.01, **kw)
+    y0 = sn.instance_norm_act_reference(x, n1, 0.01, **kw)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(y, y0, rtol=8e-3, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hw,heads,shift", [
+    (2, (224, 288), 3, 3), (2, (112, 144), 6, 0), (2, (28, 36), 24, 3),
+    (3, (13, 20), 2, 3), (2, (6, 20), 1, 3), (2, (4, 6), 2, 3)])
+def test_window_attn_on_the_card_matches_plain(cuda_device, B, hw, heads,
+                                               shift):
+    from att_aspp_unet_tpu_torch.models.swin_unetr import \
+        relative_position_index
+    from att_aspp_unet_tpu_torch.ops.kernels import window_attn as wa
+
+    g = torch.Generator(device=cuda_device).manual_seed(heads + shift)
+    C = 16 * heads
+    qkv = torch.randn(B, *hw, 3 * C, device=cuda_device, generator=g) \
+        .bfloat16()
+    bias = torch.randn(3 * C, device=cuda_device, generator=g).bfloat16()
+    table = torch.randn(169, heads, device=cuda_device, generator=g)
+    index = relative_position_index(7).to(cuda_device)
+    o = wa.window_attn(qkv, bias, table, index, heads, 7, shift)
+    o0 = wa.window_attn_reference(qkv, bias, table, index, heads, 7, shift)
+    # the kernel's probabilities are rounded to bf16 for the second product
+    rel = float((o.float() - o0.float()).norm() / o0.float().norm())
+    assert rel < 1e-2, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(448, 576), (13, 20)])
+def test_swin_stem_on_the_card_matches_plain(cuda_device, hw):
+    from att_aspp_unet_tpu_torch.ops.kernels import swin_ops as sn
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.rand(3, 1, *hw, device=cuda_device, generator=g).bfloat16()
+    w3 = (torch.randn(48, 1, 3, 3, device=cuda_device, generator=g) / 3) \
+        .bfloat16()
+    w1 = torch.randn(48, 1, 1, 1, device=cuda_device, generator=g).bfloat16()
+    y, r = sn.stem_convs(x, w3, w1)
+    y0, r0 = sn.stem_convs_reference(x, w3, w1)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(y, y0, rtol=8e-3, atol=8e-3)
+    assert torch.equal(r, r0)
