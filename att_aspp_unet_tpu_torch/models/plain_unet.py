@@ -20,7 +20,11 @@ Parameters carry nnU-Net v2's names, so a ``checkpoint_final.pth`` loads with
 Conv weights are held in the compute dtype (the JAX model casts its f32
 parameters to it at every use, which rounds the same way); InstanceNorm's
 affine parameters stay in ``param_dtype``.  On a card the activations are
-channel-last in memory.
+channel-last in memory, and every bf16 map there goes through the port's
+InstanceNorm + LeakyReLU kernels (``ops/kernels/swin_ops.py``: one
+statistics pass, one pass that writes the activated map), which raise on a
+map or an affine they cannot take; the CPU and f32 maps run
+:class:`InstanceNorm` and ``leaky_relu_``.
 """
 
 from __future__ import annotations
@@ -32,8 +36,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import PlainUNetConfig
+from ..ops.kernels.swin_ops import instance_norm_act
+from ..utils.profiling import count
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+SLOPE = 0.01                  # nnU-Net's LeakyReLU
 
 
 class InstanceNorm(nn.Module):
@@ -72,12 +79,24 @@ class InstanceNorm(nn.Module):
         return torch.addcmul(shift, x, scale, out=torch.empty_like(x))
 
 
+def fused_norm_applies(y: torch.Tensor, norm: InstanceNorm) -> bool:
+    """Whether ``norm`` + LeakyReLU of the conv output ``y`` goes through
+    the port's kernels: every bf16 ``y`` on a card, whatever its channels
+    and ``norm``'s affine (the kernels' entry raises on what it cannot
+    take, so that no plan loses them unseen).  The CPU and f32 maps, which
+    the kernels do not compute, keep :class:`InstanceNorm`'s arithmetic."""
+    return y.is_cuda and y.dtype == torch.bfloat16
+
+
 class ConvNormAct(nn.Module):
     """3x3 conv (padding 1, stride 1 or 2) -> InstanceNorm -> LeakyReLU(0.01)
     in the compute dtype.  The conv's bias is a per-channel constant that
     the norm's mean subtracts again, so the forward leaves it out (on a card
     PyTorch adds it in a pass of its own over the activation); the parameter
-    stays, for the checkpoints' names."""
+    stays, for the checkpoints' names.  Where :func:`fused_norm_applies`,
+    the norm and the activation are the port's kernels, which compute the
+    affine and the LeakyReLU in f32 and round once to bf16, and each such
+    call is counted as ``fused_instance_norms``."""
 
     def __init__(self, cin: int, cout: int, stride: int, device, dtype,
                  param_dtype):
@@ -88,7 +107,14 @@ class ConvNormAct(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x, self.conv.weight, None, self.conv.stride, 1)
-        return F.leaky_relu_(self.norm(y), 0.01)
+        if fused_norm_applies(y, self.norm):
+            count("fused_instance_norms")
+            # a no-op where cuDNN kept the map channel-last, as it does for
+            # the engine's channel-last model
+            return instance_norm_act(
+                y.contiguous(memory_format=torch.channels_last), self.norm,
+                SLOPE)
+        return F.leaky_relu_(self.norm(y), SLOPE)
 
 
 class StackedConvBlocks(nn.Module):

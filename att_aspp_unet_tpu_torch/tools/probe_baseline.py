@@ -14,9 +14,12 @@ width.
    speckled, percolating component that takes many iterations.
 2. One conv -> InstanceNorm -> LeakyReLU block of stage 0 (32 channels at
    448 x 576, ``--batch`` patches, bf16 channel-last): the conv with
-   cuDNN's default algorithm choice and with ``cudnn.benchmark``, the port's
-   InstanceNorm and ``F.instance_norm``: milliseconds (CUDA events) and the
-   largest difference of the two norms.
+   cuDNN's default algorithm choice and with ``cudnn.benchmark``, the
+   block's norm and LeakyReLU through the port's kernels (as the block runs
+   them on a card), through the plain ``InstanceNorm`` and through
+   ``F.instance_norm``: milliseconds (CUDA events) and the largest
+   difference of the kernels and of the plain module from
+   ``F.instance_norm``.
 """
 
 from __future__ import annotations
@@ -119,7 +122,8 @@ def probe_seeds(seeds, n_frames: int) -> None:
 
 
 def probe_norm(batch: int) -> None:
-    from ..models.plain_unet import ConvNormAct
+    from ..models.plain_unet import SLOPE, ConvNormAct
+    from ..ops.kernels.swin_ops import instance_norm_act
 
     torch.manual_seed(0)
     blk = ConvNormAct(32, 32, 1, device="cuda", dtype=torch.bfloat16,
@@ -132,15 +136,20 @@ def probe_norm(batch: int) -> None:
     with torch.no_grad():
         y = blk.conv(x)
 
-        def port():
-            return F.leaky_relu_(blk.norm(y), 0.01)
+        def kernels():
+            return instance_norm_act(y, blk.norm, SLOPE)
+
+        def plain():
+            return F.leaky_relu_(blk.norm(y), SLOPE)
 
         def library():
             z = F.instance_norm(y, weight=blk.norm.weight,
                                 bias=blk.norm.bias, eps=1e-5)
-            return F.leaky_relu_(z, 0.01)
+            return F.leaky_relu_(z, SLOPE)
 
-        err = float((port().float() - library().float()).abs().max())
+        lib = library().float()
+        err = [float((f().float() - lib).abs().max())
+               for f in (kernels, plain)]
         conv_ms = _ms(lambda: blk.conv(x))
         torch.backends.cudnn.benchmark = True
         try:
@@ -149,10 +158,11 @@ def probe_norm(batch: int) -> None:
             torch.backends.cudnn.benchmark = False
         print(f"[norm] stage-0 block, {batch} x 32 x 448 x 576 bf16 "
               f"channel-last: conv {conv_ms:.3f} ms (cudnn.benchmark "
-              f"{bench_ms:.3f} ms), port "
-              f"InstanceNorm + LeakyReLU {_ms(port):.3f} ms, F.instance_norm "
-              f"+ LeakyReLU {_ms(library):.3f} ms, max |difference| "
-              f"{err:.4g}", flush=True)
+              f"{bench_ms:.3f} ms); InstanceNorm + LeakyReLU: the port's "
+              f"kernels {_ms(kernels):.3f} ms, the plain module "
+              f"{_ms(plain):.3f} ms, F.instance_norm {_ms(library):.3f} ms; "
+              f"max |difference| from F.instance_norm: kernels "
+              f"{err[0]:.4g}, plain {err[1]:.4g}", flush=True)
 
 
 def main(argv=None) -> int:

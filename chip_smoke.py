@@ -7,6 +7,8 @@
 
     python3 chip_smoke.py --only swin
 
+    python3 chip_smoke.py --only baseline
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. build the hand-written kernels from ``att_aspp_unet_tpu_torch/csrc``
@@ -69,10 +71,16 @@ Phases (any failure exits non-zero and prints no result line):
    contract; a warm ``BaselineEngine`` on the 140-frame sweep and the
    840-frame case (frames/s, the forward's TFLOP/s, peak memory, class
    shares, 3-D components; the ``fixed_point_reads`` counter equal to the
-   propagation iterations), the program's spans of a profiled call on the
-   sweep; card against CPU: the forward on
-   2 frames, the postprocess of the 140-frame softmax stack.  K1 does not
-   run on this path;
+   propagation iterations; every one of the 26 InstanceNorms of each bf16
+   forward through the port's norm kernels, counted by their launches and
+   by ``fused_instance_norms``), the program's spans of a profiled call on
+   the sweep; card against CPU: the forward on
+   2 frames, the postprocess of the 140-frame softmax stack; the norm
+   kernels' statistics and apply passes at each stage's shape of a
+   forward (ms, GB/s) beside the plain ``InstanceNorm`` + ``leaky_relu_``,
+   their output held there against its plain version.
+   K1 does not run on this path (``--only baseline`` runs this phase
+   alone);
 7b. swin (after the baseline; ``--only swin`` runs it alone): Swin UNETR
    at its published widths (feature size 48, heads 3/6/12/24, window 7)
    from the seeded initialisation: the bf16 forward over one tile batch
@@ -1701,6 +1709,94 @@ def plain_unet_flops(pu) -> float:
     return total + 2 * feats[0] * pu.num_classes * px[0]
 
 
+def norm_shapes(pu):
+    """(B, C, H, W) of each stage's InstanceNorms in one forward of the
+    plan: a micro-batch of ``tile_batch`` tiles and their mirror views."""
+    views = 4 if pu.use_mirroring and pu.mirror_batch else 1
+    h, w = pu.patch_size
+    return [(pu.tile_batch * views, min(pu.base_c * 2 ** s, pu.max_c),
+             h >> s, w >> s) for s in range(pu.n_stages)]
+
+
+def fused_norms():
+    """(launches of the norm kernels' entry, ``fused_instance_norms``)."""
+    from att_aspp_unet_tpu_torch.ops.kernels import swin_ops
+    from att_aspp_unet_tpu_torch.utils.profiling import counts
+
+    return (swin_ops.instance_norm_act.launches,
+            counts().get("fused_instance_norms", 0))
+
+
+def hold_fused_norms(where: str, before, forwards: int, per_forward: int):
+    """Every norm of ``forwards`` bf16 forwards went through the kernels:
+    both counters moved by ``per_forward`` x ``forwards`` since
+    ``before``."""
+    got = tuple(a - b for a, b in zip(fused_norms(), before))
+    want = per_forward * forwards
+    if forwards <= 0 or got != (want, want):
+        raise AssertionError(
+            f"{where}: the norm kernels launched {got[0]} times and "
+            f"fused_instance_norms moved by {got[1]} over {forwards} "
+            f"forwards; each forward's {per_forward} norms imply {want}")
+    return got
+
+
+def phase_norm_kernels(dev, pu):
+    """The port's InstanceNorm + LeakyReLU kernels at each stage's shape of
+    the plan's forward (bf16 channel-last, f32 affine): the statistics
+    pass (with its finalize launch) and the apply pass, against the plain
+    ``InstanceNorm`` + ``leaky_relu_``.  Bytes: the statistics read the map
+    (2 bytes an element), the apply reads and writes it (4), the plain
+    path's four passes read three times and write twice (10).  The apply's
+    time is the whole call's less the statistics'.  Each shape's output is
+    held against ``instance_norm_act_reference`` on the same map and a
+    seeded affine, at the card tests' tolerance (rtol 8e-3, atol 2e-2),
+    a few samples at a time to bound the f32 reference's memory."""
+    import torch
+    import torch.nn.functional as F
+
+    from att_aspp_unet_tpu_torch.models.plain_unet import InstanceNorm
+    from att_aspp_unet_tpu_torch.ops.kernels import swin_ops as sn
+
+    lib = sn._lib()
+    for B, C, H, W in norm_shapes(pu):
+        g = torch.Generator(device=dev).manual_seed(C + H)
+        x = (torch.randn(B, C, H, W, device=dev, generator=g) * 3 + 1) \
+            .bfloat16().contiguous(memory_format=torch.channels_last)
+        norm = InstanceNorm(C, device=dev)
+        with torch.no_grad():
+            norm.weight.copy_(torch.rand(C, device=dev, generator=g) + 0.5)
+            norm.bias.copy_(torch.randn(C, device=dev, generator=g))
+        worst = 0.0
+        with torch.no_grad():
+            y = sn.instance_norm_act(x, norm, 0.01)
+            for i in range(0, B, 16):
+                want = sn.instance_norm_act_reference(x[i:i + 16], norm,
+                                                      0.01)
+                torch.testing.assert_close(
+                    y[i:i + 16], want, rtol=8e-3, atol=2e-2,
+                    msg=lambda m: f"norm kernels at {B}x{C}x{H}x{W}, "
+                                  f"samples {i}..{i + 15}: {m}")
+                worst = max(worst, float((y[i:i + 16].float()
+                                          - want.float()).abs().max()))
+                del want
+            del y
+        n = x.numel()
+        t_stats = cuda_ms(lambda: sn._stats(x, norm, lib), reps=20)
+        t_all = cuda_ms(lambda: sn.instance_norm_act(x, norm, 0.01), reps=20)
+        t_plain = cuda_ms(lambda: F.leaky_relu_(norm(x), 0.01), reps=20)
+        t_apply = t_all - t_stats
+        log(f"[baseline] norm kernels at {B}x{C}x{H}x{W}: statistics "
+            f"{t_stats:.4f} ms = {2 * n / t_stats / 1e6:.0f} GB/s, apply "
+            f"{t_apply:.4f} ms = {4 * n / t_apply / 1e6:.0f} GB/s, both "
+            f"{t_all:.4f} ms = {6 * n / t_all / 1e6:.0f} GB/s; plain "
+            f"InstanceNorm + leaky_relu_ {t_plain:.4f} ms = "
+            f"{10 * n / t_plain / 1e6:.0f} GB/s ({t_plain / t_all:.2f} x); "
+            f"max |difference| from the reference {worst:.4g}")
+        del x
+    torch.cuda.empty_cache()
+
+
 def phase_baseline(dev, sweep, case, tmp):
     """The nnU-Net-style baseline, the container's default model, at the
     full width of the in-repo plan with the seeded initialisation: the
@@ -1739,13 +1835,25 @@ def phase_baseline(dev, sweep, case, tmp):
             "--dataset-json", str(REPO / PLAN_DIR / "dataset.json"),
             "--device", dev,
             "--no-save-probabilities", "--no-debug-frames"]
+    # forwards of the network, to hold the norm kernels' launches to (one
+    # ConvNormAct per conv of the encoder's stages and the decoder's)
+    forwards = [0]
+    per_forward = pu.conv_per_stage * (2 * pu.n_stages - 1)
+
+    def on_forward(module, *_):
+        if isinstance(module, PlainConvUNet):
+            forwards[0] += 1
+
+    hook = torch.nn.modules.module.register_module_forward_hook(on_forward)
     reset_launches()
+    norms = fused_norms()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     wall = time.perf_counter() - t0
     # no K1 (conv + InstanceNorm is not K1's conv + folded BN); one CLAHE
     # over the whole case
     launches = read_launches("baseline", (0, 1))
+    hold_fused_norms("baseline container", norms, forwards[0], per_forward)
     vol = read_mha(tmp / "bout/images/fetal-abdomen-segmentation/case-840.mha")
     frame = read_json(tmp / "bout/fetal-abdomen-frame-number.json")
     arr = vol.array
@@ -1782,6 +1890,7 @@ def phase_baseline(dev, sweep, case, tmp):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         reads = counts().get("fixed_point_reads", 0)
+        norms, forwards[0] = fused_norms(), 0
         with count_iterations() as iters:
             t0 = time.perf_counter()
             probs = engine.predict(data)
@@ -1799,6 +1908,8 @@ def phase_baseline(dev, sweep, case, tmp):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for k, v in read_launches(f"baseline engine {nn}", (0, 1)).items():
             totals[k] += v
+        fused = hold_fused_norms(f"baseline engine {nn}", norms, forwards[0],
+                                 per_forward)
         raw = thresholded_labels(probs)
         stats = []
         for lab in (1, 2):
@@ -1815,12 +1926,15 @@ def phase_baseline(dev, sweep, case, tmp):
             f"{fwd:.3f} s = {frame_flops * nn / fwd / 1e12:.1f} TFLOP/s "
             f"({100 * frame_flops * nn / fwd / PEAK_BF16_FLOPS:.1f} % of the "
             f"bf16 peak); peak memory {peak:.2f} GiB; propagation iterations "
-            f"{iters}; frame {f}; after the threshold {'; '.join(stats)}")
+            f"{iters}; frame {f}; after the threshold {'; '.join(stats)}; "
+            f"{forwards[0]} forwards, norm kernels launched {fused[0]} "
+            f"times ({per_forward} a forward)")
         if label == "140":
             probs140, seg140, f140 = probs, seg, f
         kept[label] = int((seg > 0).sum())
         del probs, seg, raw
         torch.cuda.empty_cache()
+    hook.remove()
     if not any(kept.values()):
         raise AssertionError(f"seed {BASELINE_SEED} leaves every class "
                              "empty: the postprocess does no work")
@@ -1870,6 +1984,7 @@ def phase_baseline(dev, sweep, case, tmp):
         f"frame {f_cpu} on the CPU, {f140} on the card")
     if n_diff or f_cpu != f140:
         raise AssertionError("baseline: card and CPU postprocess disagree")
+    phase_norm_kernels(dev, pu)
     return totals
 
 
@@ -4188,9 +4303,10 @@ def main(argv=None) -> int:
     ap.add_argument("--save-int8-scales", default=None, metavar="NPZ",
                     help="also save the int8 container's calibrated "
                          "variables (with their quant collection) there")
-    ap.add_argument("--only", choices=["swin"], default=None,
-                    help="build the kernels and run this phase alone, on "
-                         "the first seeded sweep")
+    ap.add_argument("--only", choices=["swin", "baseline"], default=None,
+                    help="build the kernels and run this phase alone: "
+                         "swin on the first seeded sweep, baseline on it "
+                         "and on the six-sweep case")
     args = ap.parse_args(argv)
     if not (REPO / "att_aspp_unet_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -4211,10 +4327,22 @@ def main(argv=None) -> int:
         + ", ".join(f"{m} {host_library(m)}"
                     for m in ("PIL", "pandas", "matplotlib", "zlib")))
     t_start = time.perf_counter()
-    if args.only == "swin":
+    if args.only:
         phase_build()
         with tempfile.TemporaryDirectory() as tmp:
-            launches = phase_swin(dev, make_seeded_sweep(SEED)[0], Path(tmp))
+            if args.only == "swin":
+                launches = phase_swin(dev, make_seeded_sweep(SEED)[0],
+                                      Path(tmp))
+            else:
+                with ProcessPoolExecutor(
+                        max_workers=N_SWEEPS,
+                        mp_context=multiprocessing.get_context(
+                            "spawn")) as pool:
+                    sweeps = [m[0] for m in pool.map(
+                        make_seeded_sweep,
+                        range(SEED, SEED + N_SWEEPS))]
+                launches = phase_baseline(dev, sweeps[0],
+                                          np.concatenate(sweeps), Path(tmp))
         log(f"[done] {time.perf_counter() - t_start:.1f} s, launches "
             f"{launches}")
         print(json.dumps({"ok": True, "device": {
