@@ -42,16 +42,13 @@ The JAX CLI's TPU-only ``--lowering`` is not taken.
 
 ``python -m att_aspp_unet_tpu_torch.cli infer-container`` runs the
 Grand-Challenge container contract on one case (``MODEL_TAG`` and ``CASE_ID``
-of the environment override ``--model-tag`` and ``--case-id``).  The default
-model is ``baseline``, the nnU-Net-style PlainConvUNet: its architecture
-comes from ``--plans`` / ``--dataset-json`` (nnU-Net's ``plans.json`` and
-``dataset.json``), its weights from an nnU-Net ``.pth`` / ``.pt`` checkpoint
-or the JAX package's flat ``.npz``; without ``--weights`` it runs on the
-initialisation of seed 0, to exercise the contract.  ``swin_unetr`` runs the
-same labeled path on the port's SwinUNETR (feature size 48, on the same
-tiles; its weights a ``.pt`` / ``.pth`` state dict with MONAI's names, or
-without ``--weights`` the initialisation of seed 0).  ``att_aspp`` needs
-``--weights``.  ``python -m att_aspp_unet_tpu_torch.inference`` runs the same
+of the environment override ``--model-tag`` and ``--case-id``), with the
+models and weights of ``infer/models.py``'s table.  The default model is
+``baseline``, the nnU-Net-style PlainConvUNet, its architecture from
+``--plans`` / ``--dataset-json`` (nnU-Net's ``plans.json`` and
+``dataset.json``); without ``--weights`` the labeled networks run on the
+initialisation of seed 0, to exercise the contract, and ``att_aspp``
+exits.  ``python -m att_aspp_unet_tpu_torch.inference`` runs the same
 contract driven by the environment alone (``WEIGHTS``, ``MODEL_TAG``,
 ``PLANS``, ``DATASET_JSON``, ``CASE_ID``, ``DEVICE``).
 
@@ -67,10 +64,11 @@ matplotlib; without it each figure is skipped with a ``[warn]`` line and the
 tables are written all the same.
 
 ``python -m att_aspp_unet_tpu_torch.cli warm`` prepares a deployment so
-that its first case pays no build: it builds the CUDA kernels (K1, K2, K3;
-``nvcc``, on a card) and the host ops (``g++``) into the package's build
-directory, then serves one all-zero sweep per ``--shapes`` entry through
-``predict_case`` (and a ``--bulk N`` group) with the JAX package's flags.
+that its first case pays no build: it builds the CUDA kernels
+(``_build.KERNEL_SOURCES``; ``nvcc``, on a card) and the host ops
+(``g++``) into the package's build directory, then serves one all-zero
+sweep per ``--shapes`` entry through ``predict_case`` (and a ``--bulk N``
+group) with the JAX package's flags.
 The JAX package's ``--export-aot``, ``--roi``, ``--c1_pad`` and
 ``--lowering`` (XLA executables and TPU-only lowerings) are refused.
 """
@@ -79,14 +77,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
-import re
 import sys
 from pathlib import Path
 
 from .config import (CalibrateConfig, Config, ContainerConfig, LossConfig,
                      ModelConfig, PredictConfig, PreprocessConfig,
                      TrainConfig)
+from .infer.models import SERVED, entry_config, load_model, load_variables
 
 
 def _config(args, **parts) -> Config:
@@ -130,106 +127,6 @@ def _serving_predict_config(args, tta: bool) -> PredictConfig:
         cascade_scout_thr=args.scout_thr,
         cascade_scout_clahe=False if args.scout_no_clahe else None,
         cascade_scout_rank=args.scout_rank)
-
-
-def load_variables(path, cfg: ModelConfig) -> dict:
-    """The JAX-layout variables of the Attention-ASPP-UNet ``cfg`` from a
-    flat ``.npz`` archive, a checkpoint of this package's ``train`` or a
-    reference ``.pt`` / ``.pth`` state dict (into the seeded
-    ``init_variables(cfg, 0)`` template, non-strict)."""
-    weights = Path(path)
-    if weights.is_dir():
-        raise SystemExit(f"{weights}: a checkpoint directory (the JAX "
-                         "package's Orbax format) is not read here; export "
-                         "it with the JAX package's train --export_npz and "
-                         "pass the weights.npz")
-    if not weights.exists():
-        raise SystemExit(f"weights not found: {weights}")
-    if weights.suffix == ".npz":
-        from .utils.npz_weights import load_npz_variables
-        return load_npz_variables(weights)
-    if weights.suffix in (".pt", ".pth"):
-        from .utils.convert import init_variables
-        from .utils.torch_import import load_torch_checkpoint
-        return load_torch_checkpoint(weights, cfg, init_variables(cfg, 0))
-    from .train.train_loop import read_checkpoint
-    from .utils.convert import checkpoint_variables
-    try:
-        return checkpoint_variables(read_checkpoint(weights)["model"], cfg)
-    except ValueError as err:
-        raise SystemExit(f"{weights}: expected a flat .npz archive, a "
-                         "checkpoint of this package's train or a PyTorch "
-                         f".pt / .pth state dict ({err})") from None
-
-
-def load_baseline(weights, cfg: Config):
-    """The baseline's PlainConvUNet on the CPU: from an nnU-Net checkpoint
-    (``.pth`` / ``.pt``), from the JAX package's flat ``.npz``, or, without
-    weights, from the initialisation of seed 0."""
-    from .models.plain_unet import PlainConvUNet
-
-    if weights is None:
-        print("[warn] no --weights given: using random init (smoke mode)")
-        return PlainConvUNet.from_config(cfg.plain_unet, seed=0)
-    path = Path(weights)
-    if not path.exists():
-        raise SystemExit(f"weights not found: {path}")
-    if path.suffix in (".pth", ".pt"):
-        from .utils.nnunet_import import load_nnunet_checkpoint
-        return load_nnunet_checkpoint(path, cfg.plain_unet)
-    if path.suffix == ".npz":
-        from .utils.convert import jax_plain_unet_to_torch
-        from .utils.npz_weights import load_npz_variables
-        return jax_plain_unet_to_torch(load_npz_variables(path),
-                                       cfg.plain_unet)
-    raise SystemExit(f"--weights {path}: expected an nnU-Net .pth / .pt "
-                     "checkpoint or a flat .npz archive")
-
-
-def load_swin_unetr(weights, cfg: Config):
-    """The labeled path's SwinUNETR on the CPU (``cfg.swin_unetr``): from a
-    ``.pt`` / ``.pth`` state dict with MONAI's parameter names, or, without
-    weights, from the initialisation of seed 0.  Every key has to match,
-    except that the conv blocks' InstanceNorm affines may be missing
-    (MONAI's ``norm_name="instance"`` has none): they stay at 1 and 0, which
-    computes the same.  Any other missing key, or any unexpected one, is a
-    checkpoint of another network, and is refused."""
-    from .models.swin_unetr import SwinUNETR
-
-    if weights is None:
-        print("[warn] no --weights given: using random init (smoke mode)")
-        return SwinUNETR.from_config(cfg.swin_unetr, seed=0)
-    path = Path(weights)
-    if not path.exists():
-        raise SystemExit(f"weights not found: {path}")
-    if path.suffix not in (".pth", ".pt"):
-        raise SystemExit(f"--weights {path}: the swin_unetr model reads a "
-                         ".pt / .pth state dict")
-    import torch
-
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = sd.get("state_dict", sd)
-    model = SwinUNETR(cfg.swin_unetr)
-    res = model.load_state_dict(sd, strict=False)
-    foreign = [k for k in res.missing_keys
-               if k.startswith("swinViT.")
-               or not re.search(r"\.norm[123]\.(weight|bias)$", k)]
-    if foreign or res.unexpected_keys:
-        raise SystemExit(
-            f"--weights {path} is not a SwinUNETR state dict of this "
-            f"configuration: {len(foreign)} missing keys (e.g. "
-            f"{foreign[:3]}) and {len(res.unexpected_keys)} unexpected "
-            f"(e.g. {res.unexpected_keys[:3]})")
-    print(f"[swin_unetr] loaded with {len(res.missing_keys)} missing "
-          "InstanceNorm affine keys (left at 1 and 0)")
-    return model.eval()
-
-
-def load_labeled(tag: str, weights, cfg: Config):
-    """The model of a labeled ``MODEL_TAG`` (``baseline`` or
-    ``swin_unetr``) on the CPU."""
-    return (load_swin_unetr if tag == "swin_unetr" else load_baseline)(
-        weights, cfg)
 
 
 def cmd_predict(args) -> int:
@@ -330,30 +227,17 @@ def cmd_calibrate(args) -> int:
 
 
 def cmd_infer_container(args) -> int:
-    from .infer.container import LABELED_TAGS, run_from_env
+    from .infer.container import run
 
-    cfg = _config(args, container=ContainerConfig(
-                     input_path=args.input, output_path=args.output,
-                     model_tag=args.model_tag, case_id=args.case_id))
-    if args.plans:
-        from .utils.nnunet_import import load_plans_config
-        cfg = dataclasses.replace(cfg, plain_unet=load_plans_config(
-            Path(args.plans), dataset_json=(Path(args.dataset_json)
-                                            if args.dataset_json else None),
-            base=cfg.plain_unet))
-    # the weights are read for the model that will serve, which MODEL_TAG
-    # of the environment may choose over --model-tag
-    tag = os.getenv("MODEL_TAG", args.model_tag)
-    if tag in LABELED_TAGS:
-        model = load_labeled(tag, args.weights, cfg)
-    elif args.weights is None:
-        raise SystemExit("the att_aspp model needs --weights (a flat .npz or "
-                         "a .pt / .pth state dict)")
-    else:
-        model = load_variables(args.weights, cfg.model)
-    return run_from_env(cfg, model, device=args.device,
-                        save_probabilities=not args.no_save_probabilities,
-                        debug_frames=not args.no_debug_frames)
+    # the weights are read for the tag that serves, MODEL_TAG's if it is set
+    cfg = entry_config(_config(args, container=ContainerConfig(
+        input_path=args.input, output_path=args.output,
+        model_tag=args.model_tag, case_id=args.case_id)),
+        args.plans, args.dataset_json)
+    model = load_model(cfg.container.model_tag, args.weights, cfg)
+    return run(cfg, model, device=args.device,
+               save_probabilities=not args.no_save_probabilities,
+               debug_frames=not args.no_debug_frames)
 
 
 def cmd_train(args) -> int:
@@ -638,8 +522,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "case under --input")
     ic.add_argument("--input", default="./test/input")
     ic.add_argument("--output", default="./test/output")
-    ic.add_argument("--model-tag", default="baseline",
-                    choices=["baseline", "att_aspp", "swin_unetr"])
+    ic.add_argument("--model-tag", default="baseline", choices=list(SERVED))
     ic.add_argument("--case-id", default="output")
     ic.add_argument("--weights",
                     help="baseline: nnU-Net .pth / .pt checkpoint or flat "

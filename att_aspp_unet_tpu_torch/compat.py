@@ -20,8 +20,9 @@ import numpy as np
 import torch
 
 from .config import Config
-from .infer.container import LABELED_TAGS, select_labeled_mask_and_frame
-from .infer.engine import AttAsppEngine, BaselineEngine, select_mask_and_frame
+from .infer.container import select_labeled_mask_and_frame
+from .infer.engine import select_mask_and_frame
+from .infer.models import build_engine, load_model
 from .io.volume import read_volume
 
 
@@ -70,11 +71,9 @@ class FetalAbdomenSegmentation:
 
     ``model_tag='att_aspp'`` → the ROI deployment path
     (``model_attention_aspp.py:33-89``); ``model_tag='baseline'`` → the
-    sliding-window PlainConvUNet path (``model.py:19-104``);
-    ``model_tag='swin_unetr'`` → the same path with the port's SwinUNETR
-    (a ``.pt`` / ``.pth`` state dict).  ``variables`` skips the checkpoint:
-    the JAX-layout variables tree (numpy) of ``att_aspp`` or ``baseline``,
-    or the port's ``PlainConvUNet`` / ``SwinUNETR``.
+    sliding-window PlainConvUNet path (``model.py:19-104``); any other tag
+    of ``infer/models.py``'s table as the container serves it.
+    ``variables`` skips the checkpoint (what ``build_engine`` takes).
     """
 
     def __init__(self, checkpoint_path: Optional[str] = "checkpoints/best_model.pth",
@@ -89,17 +88,8 @@ class FetalAbdomenSegmentation:
         if variables is None:
             if checkpoint_path is None or not Path(checkpoint_path).exists():
                 raise FileNotFoundError(f"checkpoint not found: {checkpoint_path}")
-            from .cli import load_labeled, load_variables
-            variables = (load_labeled(model_tag, Path(checkpoint_path),
-                                      self.cfg)
-                         if model_tag in LABELED_TAGS else
-                         load_variables(Path(checkpoint_path), self.cfg.model))
-        if model_tag == "att_aspp":
-            self._engine = AttAsppEngine(self.cfg, variables, device=device)
-        elif model_tag in LABELED_TAGS:
-            self._engine = BaselineEngine(self.cfg, variables, device=device)
-        else:
-            raise ValueError(f"unknown model_tag {model_tag!r}")
+            variables = load_model(model_tag, Path(checkpoint_path), self.cfg)
+        self._serving = build_engine(model_tag, self.cfg, variables, device)
 
     def predict(self, input_img_path, save_probabilities: bool = False
                 ) -> np.ndarray:
@@ -113,11 +103,7 @@ class FetalAbdomenSegmentation:
         self.case_id = Path(input_img_path).stem
         vol = read_volume(input_img_path,
                           default_spacing=self.cfg.container.spacing_mm)
-        if self.model_tag == "att_aspp":
-            probs = self._engine.predict_roi(vol.array)
-        else:
-            probs = self._engine.predict(vol.array)
-        probs = probs.cpu().numpy()
+        probs = self._serving.predict(vol.array).cpu().numpy()
         if save_probabilities:
             out = Path("output/probabilities")
             out.mkdir(parents=True, exist_ok=True)
@@ -128,10 +114,8 @@ class FetalAbdomenSegmentation:
         probs = probability_map
         if not isinstance(probs, torch.Tensor):
             probs = torch.from_numpy(np.array(probs))   # a writable copy
-        probs = probs.to(self._engine.device)
-        if self.model_tag == "att_aspp":
-            return self._engine.postprocess_roi(probs).cpu().numpy()
-        return self._engine.postprocess(probs).cpu().numpy()
+        probs = probs.to(self._serving.device)
+        return self._serving.postprocess(probs).cpu().numpy()
 
     def validate(self, cases) -> None:
         """Run every registered validator over the input case set

@@ -2,18 +2,14 @@
 ``infer/container.py``).
 
 - input:  ``<input>/images/stacked-fetal-ultrasound/*.mha|*.tiff`` (one case)
-- env:    ``MODEL_TAG`` = ``baseline`` | ``att_aspp`` | ``swin_unetr``;
+- env:    ``MODEL_TAG`` (a tag of ``infer/models.py``'s table);
           ``CASE_ID`` names the output volume
 - output: ``<output>/images/fetal-abdomen-segmentation/<case>.mha`` and
           ``<output>/fetal-abdomen-frame-number.json``
-- ``baseline`` (the default): the nnU-Net-style PlainConvUNet over
-  sliding-window tiles at native resolution, the 3-D largest component of
-  each class, and the reference's class-1-then-class-2 frame ladder;
-  ``swin_unetr``: the same labeled path with the port's SwinUNETR in the
-  PlainConvUNet's place (its widths ``cfg.swin_unetr``, the same tiles);
-  ``att_aspp``: the ROI path on 128 subsampled frames, with the model
-  variant of ``cfg.model`` (the CLI's model flags; weights from a flat
-  ``.npz`` or a reference ``.pt``);
+- a labeled network (the default ``baseline``): sliding-window tiles at
+  native resolution, the 3-D largest component of each class, and the
+  reference's class-1-then-class-2 frame ladder; ``att_aspp``: the ROI path
+  on 128 subsampled frames, with the model variant of ``cfg.model``;
 - the selected-frame mask is nearest-neighbour resized back to the native
   (H, W) before writing; optionally the probability stack is dumped and three
   debug frames are written as PNGs.
@@ -21,8 +17,6 @@
 
 from __future__ import annotations
 
-import dataclasses
-import os
 from glob import glob
 from pathlib import Path
 from typing import Optional, Tuple
@@ -33,14 +27,9 @@ import torch
 from ..config import Config
 from ..io import read_volume, write_gray_png, write_json
 from ..preprocess import enhance_frames
-from .engine import (AttAsppEngine, BaselineEngine, resize_mask_to,
-                     select_mask_and_frame)
+from .engine import resize_mask_to, select_mask_and_frame
+from .models import build_engine, entry_config
 from .outputs import write_segmentation_output
-
-
-# the container's models; the labeled ones run BaselineEngine
-MODEL_TAGS = ("baseline", "att_aspp", "swin_unetr")
-LABELED_TAGS = ("baseline", "swin_unetr")
 
 
 def get_image_file_path(location: Path):
@@ -93,14 +82,11 @@ def _dump_debug_frames(cfg: Config, sweep: np.ndarray, dump_dir: Path,
 def run(cfg: Config, variables, case_id: Optional[str] = None,
         save_probabilities: bool = True, debug_frames: bool = True,
         device="cuda", log=print) -> int:
-    """Process the single case in ``cfg.container.input_path``.
-    ``variables``: the JAX package's variables tree as numpy for
-    ``baseline`` or ``att_aspp``, the port's ``PlainConvUNet`` for
-    ``baseline``, or its ``SwinUNETR`` for ``swin_unetr``."""
+    """Process the single case in ``cfg.container.input_path`` with the
+    model ``variables`` of ``cfg.container.model_tag`` (as
+    ``infer.models.build_engine`` takes it)."""
     ccfg = cfg.container
-    if ccfg.model_tag not in MODEL_TAGS:
-        raise ValueError(f"MODEL_TAG={ccfg.model_tag!r}: expected one of "
-                         f"{', '.join(map(repr, MODEL_TAGS))}")
+    serving = build_engine(ccfg.model_tag, cfg, variables, device)
     input_path = Path(ccfg.input_path)
     output_path = Path(ccfg.output_path)
     case_id = case_id or ccfg.case_id
@@ -118,26 +104,23 @@ def run(cfg: Config, variables, case_id: Optional[str] = None,
         raise ValueError(f"expected 3-D sweep, got {sweep.shape}")
     n_frames, ref_h, ref_w = sweep.shape
 
-    labeled = ccfg.model_tag in LABELED_TAGS
-    engine = (BaselineEngine if labeled else AttAsppEngine)(
-        cfg, variables, device=device)
     if debug_frames:
-        _dump_debug_frames(cfg, sweep, output_path / "images", engine.device)
+        _dump_debug_frames(cfg, sweep, output_path / "images", serving.device)
 
     # the probability stack, its postprocess and the frame pick stay on the
     # device; only the selected mask (and, when dumping, the stack) crosses
     # to the host
-    probs = engine.predict(sweep) if labeled else engine.predict_roi(sweep)
+    probs = serving.predict(sweep)
     if save_probabilities:
         # relative to the working directory, as the reference does
         prob_dir = Path("output/probabilities")
         prob_dir.mkdir(parents=True, exist_ok=True)
         np.save(prob_dir / f"{sweep_path.stem}_prob.npy", probs.cpu().numpy())
-    if labeled:
-        mask2d, frame = select_labeled_mask_and_frame(
-            engine.postprocess(probs))
+    masks = serving.postprocess(probs)
+    if serving.labeled:
+        mask2d, frame = select_labeled_mask_and_frame(masks)
     else:
-        mask2d, sub_frame = select_mask_and_frame(engine.postprocess_roi(probs))
+        mask2d, sub_frame = select_mask_and_frame(masks)
         if sub_frame >= 0:
             # map the subsampled index back to the original frame axis
             idxs = np.linspace(0, n_frames - 1,
@@ -146,7 +129,7 @@ def run(cfg: Config, variables, case_id: Optional[str] = None,
             frame = int(idxs[sub_frame])
         else:
             frame = -1
-    del probs
+    del probs, masks
 
     mask2d = resize_mask_to(mask2d, (ref_h, ref_w))
     write_segmentation_output(
@@ -157,12 +140,7 @@ def run(cfg: Config, variables, case_id: Optional[str] = None,
     return 0
 
 
-def run_from_env(cfg: Config, variables: dict, **kw) -> int:
+def run_from_env(cfg: Config, variables, **kw) -> int:
     """:func:`run` with ``MODEL_TAG`` and ``CASE_ID`` of the environment
     overriding the configuration's ``model_tag`` and ``case_id``."""
-    ccfg = dataclasses.replace(
-        cfg.container,
-        model_tag=os.getenv("MODEL_TAG", cfg.container.model_tag),
-        case_id=os.getenv("CASE_ID", cfg.container.case_id))
-    return run(dataclasses.replace(cfg, container=ccfg), variables,
-               case_id=ccfg.case_id, **kw)
+    return run(entry_config(cfg), variables, **kw)

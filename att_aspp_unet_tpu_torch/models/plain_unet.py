@@ -20,11 +20,7 @@ Parameters carry nnU-Net v2's names, so a ``checkpoint_final.pth`` loads with
 Conv weights are held in the compute dtype (the JAX model casts its f32
 parameters to it at every use, which rounds the same way); InstanceNorm's
 affine parameters stay in ``param_dtype``.  On a card the activations are
-channel-last in memory, and every bf16 map there goes through the port's
-InstanceNorm + LeakyReLU kernels (``ops/kernels/swin_ops.py``: one
-statistics pass, one pass that writes the activated map), which raise on a
-map or an affine they cannot take; the CPU and f32 maps run
-:class:`InstanceNorm` and ``leaky_relu_``.
+channel-last in memory; ``ops/kernels/instance_norm.py`` holds the norm.
 """
 
 from __future__ import annotations
@@ -36,56 +32,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import PlainUNetConfig
-from ..ops.kernels.swin_ops import instance_norm_act
-from ..utils.profiling import count
+from ..ops.kernels.instance_norm import InstanceNorm, conv_norm_act
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 SLOPE = 0.01                  # nnU-Net's LeakyReLU
-
-
-class InstanceNorm(nn.Module):
-    """nnU-Net's norm op (InstanceNorm2d, affine, eps 1e-5): per-sample,
-    per-channel statistics of each (H, W) plane in f32, the affine transform
-    in f32, then the cast to the input's dtype, as the JAX model computes it.
-    To read the activation twice and write it once instead of the nine
-    passes of that order, the statistics come from one pass each, read
-    straight from the input (the mean, and the sum of squares with
-    ``var = E[x^2] - mean^2``, where the JAX model takes the mean of squared
-    deviations), and the folded affine ``x * s + (bias - mean * s)`` with
-    ``s = rsqrt(var + eps) * weight`` writes the input's dtype directly.
-    Both differ from the JAX order by f32 roundings of the statistics, far
-    below a bf16 step while the planes' means are not orders of magnitude
-    above their standard deviations."""
-
-    def __init__(self, channels: int, eps: float = 1e-5, device=None,
-                 dtype=torch.float32):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels, device=device,
-                                              dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(channels, device=device,
-                                             dtype=dtype))
-
-    @torch.no_grad()
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        f32 = torch.float32
-        n = x.shape[2] * x.shape[3]
-        mean = x.mean(dim=(2, 3), keepdim=True, dtype=f32)
-        sq = torch.linalg.vector_norm(x, dim=(2, 3), keepdim=True, dtype=f32)
-        var = sq.square_().div_(n).sub_(mean.square()).clamp_(min=0.0)
-        scale = torch.rsqrt(var.add_(self.eps)).mul_(
-            self.weight.to(f32)[:, None, None])
-        shift = self.bias.to(f32)[:, None, None] - mean * scale
-        return torch.addcmul(shift, x, scale, out=torch.empty_like(x))
-
-
-def fused_norm_applies(y: torch.Tensor, norm: InstanceNorm) -> bool:
-    """Whether ``norm`` + LeakyReLU of the conv output ``y`` goes through
-    the port's kernels: every bf16 ``y`` on a card, whatever its channels
-    and ``norm``'s affine (the kernels' entry raises on what it cannot
-    take, so that no plan loses them unseen).  The CPU and f32 maps, which
-    the kernels do not compute, keep :class:`InstanceNorm`'s arithmetic."""
-    return y.is_cuda and y.dtype == torch.bfloat16
 
 
 class ConvNormAct(nn.Module):
@@ -93,10 +43,7 @@ class ConvNormAct(nn.Module):
     in the compute dtype.  The conv's bias is a per-channel constant that
     the norm's mean subtracts again, so the forward leaves it out (on a card
     PyTorch adds it in a pass of its own over the activation); the parameter
-    stays, for the checkpoints' names.  Where :func:`fused_norm_applies`,
-    the norm and the activation are the port's kernels, which compute the
-    affine and the LeakyReLU in f32 and round once to bf16, and each such
-    call is counted as ``fused_instance_norms``."""
+    stays, for the checkpoints' names."""
 
     def __init__(self, cin: int, cout: int, stride: int, device, dtype,
                  param_dtype):
@@ -106,15 +53,9 @@ class ConvNormAct(nn.Module):
         self.norm = InstanceNorm(cout, device=device, dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.conv.weight, None, self.conv.stride, 1)
-        if fused_norm_applies(y, self.norm):
-            count("fused_instance_norms")
-            # a no-op where cuDNN kept the map channel-last, as it does for
-            # the engine's channel-last model
-            return instance_norm_act(
-                y.contiguous(memory_format=torch.channels_last), self.norm,
-                SLOPE)
-        return F.leaky_relu_(self.norm(y), SLOPE)
+        return conv_norm_act(
+            F.conv2d(x, self.conv.weight, None, self.conv.stride, 1),
+            self.norm, SLOPE)
 
 
 class StackedConvBlocks(nn.Module):

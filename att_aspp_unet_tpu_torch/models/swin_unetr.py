@@ -57,10 +57,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import SwinUNETRConfig
+from ..ops.kernels.instance_norm import InstanceNorm
 from ..ops.kernels.swin_ops import instance_norm_act, layer_norm, stem_convs
 from ..ops.kernels.window_attn import window_and_shift, window_attn
 from ..utils.profiling import count, span
-from .plain_unet import InstanceNorm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 STRIDE = 32                  # the network's total stride: tiles divide by it

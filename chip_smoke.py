@@ -72,11 +72,10 @@ Phases (any failure exits non-zero and prints no result line):
    840-frame case (frames/s, the forward's TFLOP/s, peak memory, class
    shares, 3-D components; the ``fixed_point_reads`` counter equal to the
    propagation iterations; every one of the 26 InstanceNorms of each bf16
-   forward through the port's norm kernels, counted by their launches and
-   by ``fused_instance_norms``), the program's spans of a profiled call on
-   the sweep; card against CPU: the forward on
-   2 frames, the postprocess of the 140-frame softmax stack; the norm
-   kernels' statistics and apply passes at each stage's shape of a
+   forward through the port's norm kernels, counted by their launches),
+   the program's spans of a profiled call on the sweep; card against CPU:
+   the forward on 2 frames, the postprocess of the 140-frame softmax stack;
+   the norm kernels' statistics and apply passes at each stage's shape of a
    forward (ms, GB/s) beside the plain ``InstanceNorm`` + ``leaky_relu_``,
    their output held there against its plain version.
    K1 does not run on this path (``--only baseline`` runs this phase
@@ -1718,26 +1717,20 @@ def norm_shapes(pu):
              h >> s, w >> s) for s in range(pu.n_stages)]
 
 
-def fused_norms():
-    """(launches of the norm kernels' entry, ``fused_instance_norms``)."""
-    from att_aspp_unet_tpu_torch.ops.kernels import swin_ops
-    from att_aspp_unet_tpu_torch.utils.profiling import counts
-
-    return (swin_ops.instance_norm_act.launches,
-            counts().get("fused_instance_norms", 0))
-
-
-def hold_fused_norms(where: str, before, forwards: int, per_forward: int):
+def hold_fused_norms(where: str, before: int, forwards: int,
+                     per_forward: int) -> int:
     """Every norm of ``forwards`` bf16 forwards went through the kernels:
-    both counters moved by ``per_forward`` x ``forwards`` since
+    their launches moved by ``per_forward`` x ``forwards`` since
     ``before``."""
-    got = tuple(a - b for a, b in zip(fused_norms(), before))
+    from att_aspp_unet_tpu_torch.ops.kernels import swin_ops
+
+    got = swin_ops.instance_norm_act.launches - before
     want = per_forward * forwards
-    if forwards <= 0 or got != (want, want):
+    if forwards <= 0 or got != want:
         raise AssertionError(
-            f"{where}: the norm kernels launched {got[0]} times and "
-            f"fused_instance_norms moved by {got[1]} over {forwards} "
-            f"forwards; each forward's {per_forward} norms imply {want}")
+            f"{where}: the norm kernels launched {got} times over "
+            f"{forwards} forwards; each forward's {per_forward} norms "
+            f"imply {want}")
     return got
 
 
@@ -1755,8 +1748,9 @@ def phase_norm_kernels(dev, pu):
     import torch
     import torch.nn.functional as F
 
-    from att_aspp_unet_tpu_torch.models.plain_unet import InstanceNorm
     from att_aspp_unet_tpu_torch.ops.kernels import swin_ops as sn
+    from att_aspp_unet_tpu_torch.ops.kernels.instance_norm import \
+        InstanceNorm
 
     lib = sn._lib()
     for B, C, H, W in norm_shapes(pu):
@@ -1814,6 +1808,7 @@ def phase_baseline(dev, sweep, case, tmp):
     from att_aspp_unet_tpu_torch.models import PlainConvUNet
     from att_aspp_unet_tpu_torch.models.sliding_window import \
         compute_tile_starts
+    from att_aspp_unet_tpu_torch.ops.kernels import swin_ops
     from att_aspp_unet_tpu_torch.postprocess import cc
     from att_aspp_unet_tpu_torch.postprocess.refine import \
         postprocess_softmax_stack
@@ -1846,7 +1841,7 @@ def phase_baseline(dev, sweep, case, tmp):
 
     hook = torch.nn.modules.module.register_module_forward_hook(on_forward)
     reset_launches()
-    norms = fused_norms()
+    norms = swin_ops.instance_norm_act.launches
     t0 = time.perf_counter()
     rc = cli.main(argv)
     wall = time.perf_counter() - t0
@@ -1890,7 +1885,7 @@ def phase_baseline(dev, sweep, case, tmp):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         reads = counts().get("fixed_point_reads", 0)
-        norms, forwards[0] = fused_norms(), 0
+        norms, forwards[0] = swin_ops.instance_norm_act.launches, 0
         with count_iterations() as iters:
             t0 = time.perf_counter()
             probs = engine.predict(data)
@@ -1927,7 +1922,7 @@ def phase_baseline(dev, sweep, case, tmp):
             f"({100 * frame_flops * nn / fwd / PEAK_BF16_FLOPS:.1f} % of the "
             f"bf16 peak); peak memory {peak:.2f} GiB; propagation iterations "
             f"{iters}; frame {f}; after the threshold {'; '.join(stats)}; "
-            f"{forwards[0]} forwards, norm kernels launched {fused[0]} "
+            f"{forwards[0]} forwards, norm kernels launched {fused} "
             f"times ({per_forward} a forward)")
         if label == "140":
             probs140, seg140, f140 = probs, seg, f
@@ -2682,7 +2677,7 @@ if os.environ.get("DEVICE", "cuda") != "cpu":
     torch.zeros(1, device=os.environ.get("DEVICE", "cuda"))
     torch.cuda.synchronize()
 marks["device_ready"] = time.time()
-from att_aspp_unet_tpu_torch.infer import container as ct
+from att_aspp_unet_tpu_torch.infer import engine as eng
 from att_aspp_unet_tpu_torch.ops.kernels import clahe_interp as ci
 from att_aspp_unet_tpu_torch.ops.kernels import fused_conv as fc
 
@@ -2694,7 +2689,7 @@ def timed_init(init):
         marks["engine_built"] = time.time()
     return wrapped
 
-for cls in (ct.AttAsppEngine, ct.BaselineEngine):
+for cls in (eng.AttAsppEngine, eng.BaselineEngine):
     cls.__init__ = timed_init(cls.__init__)
 
 def report():

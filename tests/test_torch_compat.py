@@ -202,15 +202,40 @@ def test_facade_from_pt_checkpoint(setup, tmp_path):
     assert probs.max() > 0
 
 
-def test_missing_checkpoint_and_unknown_tag_raise(setup):
-    for mod in (compat, jcompat):
-        with pytest.raises(FileNotFoundError):
-            mod.FetalAbdomenSegmentation(checkpoint_path="/nonexistent/x.pth")
-        with pytest.raises(FileNotFoundError):
-            mod.FetalAbdomenSegmentation(checkpoint_path=None)
+@pytest.mark.parametrize("entry", ["facade", "inference"])
+def test_missing_checkpoint_and_unknown_tag_raise(setup, entry, tmp_path,
+                                                  monkeypatch):
+    """The facade: a missing checkpoint raises ``FileNotFoundError`` as the
+    JAX facade's does, and an unknown ``model_tag`` a ``ValueError`` naming
+    it, with a checkpoint too.  The entry point: an unknown ``MODEL_TAG``
+    raises the same ``ValueError``, with ``WEIGHTS`` or without."""
+    if entry == "facade":
+        for mod in (compat, jcompat):
+            with pytest.raises(FileNotFoundError):
+                mod.FetalAbdomenSegmentation(
+                    checkpoint_path="/nonexistent/x.pth")
+            with pytest.raises(FileNotFoundError):
+                mod.FetalAbdomenSegmentation(checkpoint_path=None)
+        with pytest.raises(ValueError, match="nnunet"):
+            compat.FetalAbdomenSegmentation(
+                variables=setup["vars"]["att_aspp"], model_tag="nnunet",
+                device="cpu")
+        with pytest.raises(ValueError, match="nnunet"):
+            compat.FetalAbdomenSegmentation(str(setup["npz"]["att_aspp"]),
+                                            model_tag="nnunet", device="cpu")
+        return
+    _case_tree(tmp_path, _sweep(3, 5))
+    monkeypatch.chdir(tmp_path)
+    for k, v in dict(MODEL_TAG="nnunet", DEVICE="cpu").items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("PLANS", raising=False)
+    monkeypatch.delenv("WEIGHTS", raising=False)
     with pytest.raises(ValueError, match="nnunet"):
-        compat.FetalAbdomenSegmentation(variables=setup["vars"]["att_aspp"],
-                                        model_tag="nnunet", device="cpu")
+        inference.main()
+    monkeypatch.setenv("WEIGHTS", str(setup["npz"]["att_aspp"]))
+    with pytest.raises(ValueError, match="nnunet"):
+        inference.main()
+    assert not (tmp_path / "test/output").exists()
 
 
 class _Row:

@@ -655,7 +655,8 @@ def test_swin_layer_norm_on_the_card_matches_plain(cuda_device, C, residual):
 @pytest.mark.parametrize("mode", ["act", "residual", "normed_residual"])
 def test_swin_instance_norm_on_the_card_matches_plain(cuda_device, C, hw,
                                                       mode):
-    from att_aspp_unet_tpu_torch.models.plain_unet import InstanceNorm
+    from att_aspp_unet_tpu_torch.ops.kernels.instance_norm import \
+        InstanceNorm
     from att_aspp_unet_tpu_torch.ops.kernels import swin_ops as sn
 
     g = torch.Generator(device=cuda_device).manual_seed(C)
@@ -689,7 +690,8 @@ def test_plain_unet_forward_through_the_norm_kernels_matches_the_plain_path(
     channel-last, as the engine holds them, every conv output already is;
     without, the first conv's output (of the 1-channel input) is made so."""
     from att_aspp_unet_tpu_torch.config import PlainUNetConfig
-    from att_aspp_unet_tpu_torch.models import PlainConvUNet, plain_unet
+    from att_aspp_unet_tpu_torch.models import PlainConvUNet
+    from att_aspp_unet_tpu_torch.ops.kernels import instance_norm
     from att_aspp_unet_tpu_torch.ops.kernels import swin_ops as sn
     from att_aspp_unet_tpu_torch.tools.synthetic import make_sweep
 
@@ -700,19 +702,19 @@ def test_plain_unet_forward_through_the_norm_kernels_matches_the_plain_path(
     frames, _, _ = make_sweep(4, 448, 576, seed=0, best_frame=2)
     x = torch.from_numpy(frames).to(cuda_device)[:, None].float() / 255
     x = torch.cat([x] + [torch.flip(x, v) for v in ((-1,), (-2,), (-2, -1))])
-    applies, layouts = plain_unet.fused_norm_applies, []
+    applies, layouts = instance_norm.fused_norm_applies, []
 
-    def watch(y, norm):
+    def watch(y):
         layouts.append(y.is_contiguous(memory_format=torch.channels_last))
-        return applies(y, norm)
+        return applies(y)
 
-    monkeypatch.setattr(plain_unet, "fused_norm_applies", watch)
+    monkeypatch.setattr(instance_norm, "fused_norm_applies", watch)
     before = sn.instance_norm_act.launches
     got = model(x)
     assert sn.instance_norm_act.launches - before == 26
     assert len(layouts) == 26 and all(layouts[1:])
     assert layouts[0] or not channels_last_weights
-    monkeypatch.setattr(plain_unet, "fused_norm_applies", lambda y, n: False)
+    monkeypatch.setattr(instance_norm, "fused_norm_applies", lambda y: False)
     plain = model(x)
     f32 = PlainConvUNet(dataclasses.replace(cfg, compute_dtype="float32"),
                         device=cuda_device)

@@ -19,9 +19,9 @@ import numpy as np
 import pytest
 
 import chip_smoke
-from att_aspp_unet_tpu_torch import cli
 from att_aspp_unet_tpu_torch.config import Config
 from att_aspp_unet_tpu_torch.infer import container
+from att_aspp_unet_tpu_torch.infer.models import load_model
 from att_aspp_unet_tpu_torch.io import read_json, read_mha
 from att_aspp_unet_tpu_torch.ops.kernels import _build
 from att_aspp_unet_tpu_torch.utils import native
@@ -266,7 +266,7 @@ def test_local_script_serves_the_contract_on_the_cpu(tmp_path):
         container=dataclasses.replace(
             cfg.container, input_path=str(run_dir / "test/input"),
             output_path=str(tmp_path / "ref")))
-    assert container.run(cfg, cli.load_baseline(None, cfg),
+    assert container.run(cfg, load_model("baseline", None, cfg),
                          save_probabilities=False, debug_frames=False,
                          device="cpu", log=lambda *_: None) == 0
     ref = tmp_path / "ref"

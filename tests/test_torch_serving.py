@@ -33,6 +33,7 @@ from att_aspp_unet_tpu_torch.config import (Config, ContainerConfig,
                                             PredictConfig, PreprocessConfig)
 from att_aspp_unet_tpu_torch.infer import container as tcontainer
 from att_aspp_unet_tpu_torch.infer import engine as tengine
+from att_aspp_unet_tpu_torch.infer.models import SERVED
 from att_aspp_unet_tpu_torch.infer import predict_cli as tpredict
 from att_aspp_unet_tpu_torch.io import MetaImage, read_json, read_mha, \
     write_mha
@@ -529,13 +530,35 @@ def test_container_run_matches_jax_run(setup, tmp_path, monkeypatch):
             (tmp_path / "jax/images" / png).read_bytes()
 
 
+@pytest.mark.parametrize("entry", ["run_from_env", "cli"])
 def test_run_from_env_honours_model_tag_and_case_id(setup, tmp_path,
-                                                    monkeypatch):
+                                                    monkeypatch, entry):
     """MODEL_TAG and CASE_ID of the environment override the configuration;
     unset, the configured model serves (``baseline``, the default, is the
-    nnU-Net-style model); an unknown tag raises, never falls through."""
+    nnU-Net-style model); an unknown tag raises, never falls through.  The
+    CLI: ``--model-tag`` takes the tags of the served-models table and no
+    other, and an unknown ``MODEL_TAG`` raises as ``run`` does, before any
+    weights are read."""
     _, _, cfg, vnp = setup
     _case_tree(tmp_path, _sweep(7, n=4))
+    if entry == "cli":
+        sub = cli.build_parser()._subparsers._group_actions[0].choices
+        tag_flag, = [a for a in sub["infer-container"]._actions
+                     if a.dest == "model_tag"]
+        assert tag_flag.choices == list(SERVED) == ["baseline", "att_aspp",
+                                                    "swin_unetr"]
+        argv = ["infer-container", "--input", str(tmp_path / "input"),
+                "--output", str(tmp_path / "out"), "--base_c", "4",
+                "--device", "cpu"]
+        monkeypatch.delenv("MODEL_TAG", raising=False)
+        with pytest.raises(SystemExit):
+            cli.main(argv + ["--model-tag", "nnunet"])
+        monkeypatch.setenv("MODEL_TAG", "nnunet")
+        for weights in ([], ["--weights", str(tmp_path / "missing.npz")]):
+            with pytest.raises(ValueError, match="nnunet"):
+                cli.main(argv + weights)
+        assert not (tmp_path / "out").exists()
+        return
     small = PlainUNetConfig(base_c=4, max_c=16, n_stages=3,
                             patch_size=(32, 32), compute_dtype="float32")
     plain = PlainConvUNet.from_config(small, seed=1)

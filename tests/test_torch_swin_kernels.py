@@ -10,9 +10,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from att_aspp_unet_tpu_torch.models.plain_unet import InstanceNorm
 from att_aspp_unet_tpu_torch.ops.kernels import swin_ops as sn
 from att_aspp_unet_tpu_torch.ops.kernels import window_attn as wa
+from att_aspp_unet_tpu_torch.ops.kernels.instance_norm import InstanceNorm
 
 from . import torch_ref
 from .test_torch_threads import one_torch_thread  # noqa: F401
@@ -106,7 +106,7 @@ def test_layer_norm_plain_matches_pytorch(C, residual, affine, dtype):
                                   "none"])
 def test_instance_norm_act_plain_matches_the_modules(mode):
     """f32: ``act(IN(x) + r)`` as the conv blocks compute it with
-    ``plain_unet.InstanceNorm`` and LeakyReLU(0.01)."""
+    ``instance_norm.InstanceNorm`` and LeakyReLU(0.01)."""
     gen = torch.Generator().manual_seed(11)
     C = 6
     x = torch.randn(2, C, 9, 7, generator=gen) * 3 + 1

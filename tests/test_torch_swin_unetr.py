@@ -17,10 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from att_aspp_unet_tpu_torch import cli
 from att_aspp_unet_tpu_torch.config import (Config, ContainerConfig,
                                             PlainUNetConfig, SwinUNETRConfig)
 from att_aspp_unet_tpu_torch.infer import container
+from att_aspp_unet_tpu_torch.infer.models import load_swin_unetr
 from att_aspp_unet_tpu_torch.infer.engine import BaselineEngine
 from att_aspp_unet_tpu_torch.io import MetaImage, read_json, write_mha
 from att_aspp_unet_tpu_torch.models import swin_unetr as sw
@@ -259,7 +259,7 @@ def test_load_swin_unetr_from_a_state_dict(tmp_path, capsys):
     model = sw.SwinUNETR.from_config(_cfg(), seed=7)
     cfg = _config(model)
     torch.save(model.state_dict(), tmp_path / "w.pt")
-    got = cli.load_swin_unetr(tmp_path / "w.pt", cfg)
+    got = load_swin_unetr(tmp_path / "w.pt", cfg)
     assert "loaded with 0 missing InstanceNorm affine keys" in \
         capsys.readouterr().out
     x = _tiles(7, 1)
@@ -268,14 +268,14 @@ def test_load_swin_unetr_from_a_state_dict(tmp_path, capsys):
              if ".norm1." not in k and ".norm2." not in k
              and ".norm3." not in k or "swinViT" in k}
     torch.save({"state_dict": monai}, tmp_path / "monai.pth")
-    got = cli.load_swin_unetr(tmp_path / "monai.pth", cfg)
+    got = load_swin_unetr(tmp_path / "monai.pth", cfg)
     n_missing = len(model.state_dict()) - len(monai)
     assert f"loaded with {n_missing} missing InstanceNorm affine keys" in \
         capsys.readouterr().out
     assert torch.equal(got(x), model(x))
     (tmp_path / "w.npz").write_bytes(b"")
     with pytest.raises(SystemExit, match="state dict"):
-        cli.load_swin_unetr(tmp_path / "w.npz", cfg)
+        load_swin_unetr(tmp_path / "w.npz", cfg)
 
 
 @pytest.mark.parametrize("foreign", ["plain_unet", "attention_key_missing",
@@ -296,7 +296,7 @@ def test_load_swin_unetr_refuses_a_foreign_state_dict(foreign, tmp_path):
         sd["decoder1.extra.weight"] = torch.zeros(1)
     torch.save(sd, tmp_path / "w.pth")
     with pytest.raises(SystemExit, match="not a SwinUNETR state dict"):
-        cli.load_swin_unetr(tmp_path / "w.pth", _config(model))
+        load_swin_unetr(tmp_path / "w.pth", _config(model))
 
 
 

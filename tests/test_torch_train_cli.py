@@ -29,6 +29,7 @@ from att_aspp_unet_tpu.utils import npz_weights as jnpz
 from att_aspp_unet_tpu_torch import cli
 from att_aspp_unet_tpu_torch.config import AugmentConfig, Config, \
     ModelConfig, TrainConfig
+from att_aspp_unet_tpu_torch.infer.models import load_variables
 from att_aspp_unet_tpu_torch.train import train_loop as ttl
 from att_aspp_unet_tpu_torch.utils.convert import (init_variables,
                                                    jax_variables_to_torch,
@@ -161,7 +162,7 @@ def test_cli_train_resume_finetune_and_export(dirs, tmp_path):
     assert 0 < summary["best_val_dice"] <= 1
 
     # --pretrained and --weights read the port's checkpoint
-    variables = cli.load_variables(ck / "best", ModelConfig(base_c=BASE_C))
+    variables = load_variables(ck / "best", ModelConfig(base_c=BASE_C))
     assert _train(dirs, out, "--stage", "finetune", "--pretrained",
                   str(ck / "best"), "--differential_lr", "--epochs", "1") == 0
     assert len(_rows(out / "ckpt_finetune" / "metrics.csv")) == 2
@@ -214,16 +215,16 @@ def test_weights_that_are_not_the_ports_are_refused(tmp_path):
     checkpoint of the port, or one of another variant, exits too."""
     (tmp_path / "orbax").mkdir()
     with pytest.raises(SystemExit, match="--export_npz"):
-        cli.load_variables(tmp_path / "orbax", ModelConfig(base_c=BASE_C))
+        load_variables(tmp_path / "orbax", ModelConfig(base_c=BASE_C))
     (tmp_path / "junk").write_bytes(b"not a checkpoint")
     with pytest.raises(SystemExit, match="checkpoint of this package"):
-        cli.load_variables(tmp_path / "junk", ModelConfig(base_c=BASE_C))
+        load_variables(tmp_path / "junk", ModelConfig(base_c=BASE_C))
     cfg = ModelConfig(base_c=BASE_C)
     state = ttl.create_train_state(cfg, TrainConfig(), 1, "cpu")
     ttl.save_checkpoint(tmp_path / "ck", state)
-    assert cli.load_variables(tmp_path / "ck", cfg)["params"]["d1_0"]
+    assert load_variables(tmp_path / "ck", cfg)["params"]["d1_0"]
     with pytest.raises(SystemExit, match="--base_c"):
-        cli.load_variables(tmp_path / "ck", ModelConfig(base_c=8))
+        load_variables(tmp_path / "ck", ModelConfig(base_c=8))
 
 
 def test_train_refuses_cuda_without_a_card_and_finetune_without_weights(
